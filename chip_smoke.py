@@ -10,14 +10,31 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    into build/kernels/ (at first use) and prints the build seconds.
 3. K1 (pair forces) against its plain PyTorch version on the card.
 4. K2 (reward statistics) against its plain PyTorch version on the card.
-5. Main path: make_vec_env("formation_hd_env", num_envs=4096,
+5. Step path: make_vec_env("formation_hd_env", num_envs=4096,
    num_agents=243) stepped 128 steps under the BFS + ezpolicy controller by
    rollout_statepolicy_rewardsum, across one auto-reset (world_length 100).
-   Both kernels' launch counters must rise by exactly the number of steps,
+   K1's and K2's launch counters must rise by exactly the number of steps,
    and the reward sums must be finite.  The same path on a small injected
    state must agree with the CPU run of the plain versions.  Prints
    env-steps/s (median of 3 windows, each closed by a host fetch) and each
    kernel's time beside its plain version's at B=4096 (CUDA events).
+6. K3 (fused step) against its plain version on the card: N=243, B=512 and
+   4096, pre and post statistics, external actions and the in-kernel BFS,
+   and a squeezed fixture with collisions; counts exact.
+7. K4 (whole rollout) against its plain version: n=3, B=4096, episode
+   counters spread so that every env resets during the 120 steps.
+8. Fused path: rollout_statepolicy_fused(policy="bfs_ez", stats="pre") at
+   N=243, B=4096 for 128 steps across one auto-reset.  K3 launches once a
+   step, K2 (masked reset recompute) once a step and once to finalize, K1
+   never.  Finite rewards, episode counters after the reset, and the card
+   against the CPU plain path on small injected states.  Prints env-steps/s
+   and host enqueue ms/step as phase 5 does, and K3's time beside its plain
+   version's; K2's masked form beside an unconditional recompute.
+9. N=3 path: fused_rollout_hd at n=3, B=4096, length 256 (one K4 launch a
+   window); env-steps/s as above, and K4's time beside its plain version's.
+
+Each path is driven with every launch counter set to 0 just before it and
+read just after.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +55,9 @@ import torch
 STEPS = 128
 NUM_ENVS = 4096
 NUM_AGENTS = 243
+THRESH = 0.03  # the hd collision distance: (s1 + s2) / 2 with agent size 0.03
+WINDOW = 32  # steps per timed window of the N=243 paths
+N3_LENGTH = 256  # steps per K4 call of the N=3 path
 
 
 class SmokeFailure(RuntimeError):
@@ -77,13 +97,55 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_pair(kernel_fn, plain_fn):
+def time_pair(kernel_fn, plain_fn, plain_reps=3):
     """(kernel ms, plain ms) measured in turns: plain, kernel, kernel, plain."""
-    p1 = time_ms(plain_fn, 3)
+    p1 = time_ms(plain_fn, plain_reps)
     k1 = time_ms(kernel_fn, 20)
     k2 = time_ms(kernel_fn, 20)
-    p2 = time_ms(plain_fn, 3)
+    p2 = time_ms(plain_fn, plain_reps)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def reset_counts(*mods):
+    for m in mods:
+        m.launches = 0
+
+
+def throughput(run_window, envs, steps, label):
+    """env-steps/s over 3 windows: ``run_window()`` enqueues ``steps``
+    steps and returns a device tensor of reward sums, which the window
+    fetches to the host and checks finite.  Also the host's enqueue time
+    per step, before the fetch waits for the device."""
+    rates, enqueue_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = run_window()
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3 / steps)
+        rs_host = rs.cpu()
+        dt = time.perf_counter() - t0
+        require(bool(torch.isfinite(rs_host).all()), f"{label}: non-finite reward sums in a timed window")
+        rates.append(envs * steps / dt)
+    rate = statistics.median(rates)
+    print(f"env-steps/s {label}: median {rate:.1f} "
+          f"(windows of {steps} steps: {', '.join(f'{r:.1f}' for r in rates)})")
+    print(f"host enqueue ms/step {label}: median {statistics.median(enqueue_ms):.4f} "
+          f"(step wall {envs / rate * 1e3:.4f} ms)")
+    return rate
+
+
+def injected_state(n, B, seed):
+    """A formation_hd state made with numpy (landmarks on the agents'
+    centroid), for the card-against-CPU checks."""
+    srng = np.random.RandomState(seed)
+    apos = srng.uniform(-1, 1, (B, n, 2))
+    ishape = srng.uniform(-1, 1, (B, n, 2))
+    ishape -= ishape.mean(1, keepdims=True)
+    return dict(
+        pos=np.concatenate([apos, ishape + apos.mean(1, keepdims=True)], 1),
+        vel=np.zeros((B, 2 * n, 2)), c=np.zeros((B, n, 2)), ideal_shape=ishape,
+        ideal_vel=srng.uniform(-1, 1, (B, 2)), t=np.zeros(B, np.int32),
+    )
 
 
 def main() -> int:
@@ -105,9 +167,12 @@ def main() -> int:
     import gym_formation_tpu_torch as gt
     from gym_formation_tpu_torch.core import make_world_cfg
     from gym_formation_tpu_torch.ops import _build
+    from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+    from gym_formation_tpu_torch.ops.kernels import fused_step as k3
     from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
     from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
 
+    kmods = (k1, k2, k3, k4)
     dev = torch.device("cuda")
 
     # -- 2. build --------------------------------------------------------
@@ -119,7 +184,7 @@ def main() -> int:
           f"(cached={_build.build_info.get('cached')})")
     ptxas = _build.build_info.get("ptxas", "")
     for line in ptxas.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
     rng = np.random.RandomState(0)
@@ -145,14 +210,13 @@ def main() -> int:
 
     # -- 4. K2 -----------------------------------------------------------
     phase("K2 reward_sym vs plain")
-    thresh = 0.03
     k2_err = 0.0
     for B, scale in ((512, 1.0), (512, 0.05), (NUM_ENVS, 0.05)):
         apos = torch.as_tensor(rng.uniform(-1, 1, (B, NUM_AGENTS, 2)) * scale, dtype=torch.float32, device=dev)
         ishape = torch.as_tensor(rng.uniform(-1, 1, (B, NUM_AGENTS, 2)), dtype=torch.float32, device=dev)
         ishape = (ishape - ishape.mean(1, keepdim=True)).contiguous()
-        h, nc = k2.hd_reward_stats_sym(apos, ishape, thresh=thresh)
-        h_p, nc_p = k2.hd_reward_stats_sym_plain(apos, ishape, thresh=thresh)
+        h, nc = k2.hd_reward_stats_sym(apos, ishape, thresh=THRESH)
+        h_p, nc_p = k2.hd_reward_stats_sym_plain(apos, ishape, thresh=THRESH)
         torch.cuda.synchronize()
         k2_err = max(k2_err, check_close(h, h_p, 1e-5, 0.0, f"K2 haus B={B} scale={scale}"))
         require(torch.equal(nc, nc_p), f"K2 counts B={B} scale={scale}: kernel and plain differ")
@@ -160,25 +224,32 @@ def main() -> int:
             require(int(nc.sum()) > 0, "K2: the squeezed fixture has no collisions")
         print(f"K2 B={B} N={NUM_AGENTS} scale={scale}: haus max abs err {max_err(h, h_p):.3e} "
               f"(atol 1e-5), counts equal ({int(nc.sum())} collisions)")
+    # the masked form the fused rollout launches every step
+    mask = torch.as_tensor(rng.uniform(0, 1, NUM_ENVS) < 0.1, device=dev)
+    fb = (torch.full((NUM_ENVS,), -1.0, device=dev), torch.full((NUM_ENVS, NUM_AGENTS), -2.0, device=dev))
+    h, nc = k2.hd_reward_stats_sym(apos, ishape, thresh=THRESH, mask=mask, fallback=fb)
+    h_p, nc_p = k2.hd_reward_stats_sym_plain(apos, ishape, thresh=THRESH, mask=mask, fallback=fb)
+    k2_err = max(k2_err, check_close(h, h_p, 1e-5, 0.0, "K2 masked haus"))
+    require(torch.equal(nc, nc_p), "K2 masked counts: kernel and plain differ")
+    print(f"K2 masked ({int(mask.sum())} of {NUM_ENVS} envs): haus max abs err {max_err(h, h_p):.3e}, counts equal")
 
-    # -- 5. main path ----------------------------------------------------
-    phase("main path")
+    # -- 5. step path ----------------------------------------------------
+    phase("step path")
     venv = gt.make_vec_env("formation_hd_env", num_envs=NUM_ENVS, num_agents=NUM_AGENTS,
                            device=dev, seed=0)
     scen = venv.env.scenario
     policy = lambda s, g: gt.bfs_actions_from_state(gt.ezpolicy_batched, scen, s, 3)
     state = venv.reset_state()
     torch.cuda.synchronize()
-    k1.launches = 0
-    k2.launches = 0
+    reset_counts(*kmods)
     t0 = time.perf_counter()
     state, rsum = gt.rollout_statepolicy_rewardsum(venv.env, policy, state, venv.generator, STEPS)
     rsum_host = rsum.cpu()
     first_run_s = time.perf_counter() - t0
-    launches = {"pairforce_sym": k1.launches, "reward_sym": k2.launches}
-    print(f"{STEPS} steps at N={NUM_AGENTS} B={NUM_ENVS}: {first_run_s:.2f} s, launches {launches}")
-    for name, n in launches.items():
-        require(n == STEPS, f"{name}: {n} launches in {STEPS} steps of the main path")
+    step_launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kmods}
+    print(f"{STEPS} steps at N={NUM_AGENTS} B={NUM_ENVS}: {first_run_s:.2f} s, launches {step_launches}")
+    for name in ("pairforce_sym", "reward_sym"):
+        require(step_launches[name] == STEPS, f"{name}: {step_launches[name]} launches in {STEPS} steps of the step path")
     require(tuple(rsum_host.shape) == (NUM_ENVS,), f"reward sum shape {tuple(rsum_host.shape)}")
     require(bool(torch.isfinite(rsum_host).all()), "non-finite reward sums")
     require(bool(torch.isfinite(state.pos).all()) and bool(torch.isfinite(state.vel).all()),
@@ -193,15 +264,7 @@ def main() -> int:
     # the CPU (plain versions); tolerances of tests/test_fused_step.py.
     for n, B, T in ((27, 16, 8), (NUM_AGENTS, 4, 2)):
         small = gt.make_env("formation_hd_env", num_agents=n)
-        srng = np.random.RandomState(n)
-        apos = srng.uniform(-1, 1, (B, n, 2))
-        ishape = srng.uniform(-1, 1, (B, n, 2))
-        ishape -= ishape.mean(1, keepdims=True)
-        st = dict(
-            pos=np.concatenate([apos, ishape + apos.mean(1, keepdims=True)], 1),
-            vel=np.zeros((B, 2 * n, 2)), c=np.zeros((B, n, 2)), ideal_shape=ishape,
-            ideal_vel=srng.uniform(-1, 1, (B, 2)), t=np.zeros(B, np.int32),
-        )
+        st = injected_state(n, B, n)
         pol = lambda s, g: gt.bfs_actions_from_state(gt.ezpolicy_batched, small.scenario, s, 3)
         out = {}
         for d in ("cuda", "cpu"):
@@ -216,44 +279,199 @@ def main() -> int:
         print(f"slice N={n} B={B} T={T}: card vs CPU plain agree "
               f"(pos {max_err(cp, pp):.2e}, vel {max_err(cv, pv):.2e}, reward {max_err(cr, pr):.2e})")
 
-    # Throughput: 3 windows, each closed by a host fetch of the reward sums.
-    # The host time to enqueue a window, before the fetch waits for the
-    # device, says how close the Python launch path is to the device time.
-    window = 32
-    rates, enqueue_ms = [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, rs = gt.rollout_statepolicy_rewardsum(venv.env, policy, state, venv.generator, window)
-        enqueue_ms.append((time.perf_counter() - t0) * 1e3 / window)
-        rs_host = rs.cpu()
-        dt = time.perf_counter() - t0
-        require(bool(torch.isfinite(rs_host).all()), "non-finite reward sums in a timed window")
-        rates.append(NUM_ENVS * window / dt)
-    rate = statistics.median(rates)
-    print(f"env-steps/s N={NUM_AGENTS} B={NUM_ENVS}: median {rate:.1f} "
-          f"(windows of {window} steps: {', '.join(f'{r:.1f}' for r in rates)})")
-    print(f"host enqueue ms/step: median {statistics.median(enqueue_ms):.3f} "
-          f"(step wall {NUM_ENVS / rate * 1e3:.3f} ms)")
+    def step_window():
+        nonlocal state
+        state, rs = gt.rollout_statepolicy_rewardsum(venv.env, policy, state, venv.generator, WINDOW)
+        return rs
+
+    step_rate = throughput(step_window, NUM_ENVS, WINDOW, f"step path N={NUM_AGENTS} B={NUM_ENVS}")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # Kernel against plain at the main path's shapes.
+    # Kernel against plain at the path's shapes.
     pos = scen.agent_pos(state).contiguous()
     k1_ms, k1_plain_ms = time_pair(lambda: k1.collision_forces_sym(pos, cfg),
                                    lambda: k1.collision_forces_sym_plain(pos, **p))
     ishape = state.ideal_shape.contiguous()
-    k2_ms, k2_plain_ms = time_pair(lambda: k2.hd_reward_stats_sym(pos, ishape, thresh=thresh),
-                                   lambda: k2.hd_reward_stats_sym_plain(pos, ishape, thresh=thresh))
+    k2_ms, k2_plain_ms = time_pair(lambda: k2.hd_reward_stats_sym(pos, ishape, thresh=THRESH),
+                                   lambda: k2.hd_reward_stats_sym_plain(pos, ishape, thresh=THRESH))
     print(f"K1 B={NUM_ENVS}: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
     print(f"K2 B={NUM_ENVS}: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
 
+    # -- 6. K3 -----------------------------------------------------------
+    phase("K3 fused_step vs plain")
+    k3_err = 0.0
+
+    def k3_inputs(B, squeeze, seed):
+        r = np.random.RandomState(seed)
+        f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+        ish = r.uniform(-1, 1, (B, NUM_AGENTS, 2))
+        return (f(r.uniform(-1, 1, (B, NUM_AGENTS, 2)) * squeeze), f(r.uniform(-0.5, 0.5, (B, NUM_AGENTS, 2))),
+                f(r.uniform(-5, 5, (B, NUM_AGENTS, 2))), f(ish - ish.mean(1, keepdims=True)),
+                f(r.uniform(-1, 1, (B, 2))))
+
+    for B, squeeze in ((512, 1.0), (NUM_ENVS, 1.0), (512, 0.1)):
+        apos, avel, aforce, ish, ivel = k3_inputs(B, squeeze, B + int(squeeze * 10))
+        for stats in ("pre", "post"):
+            for pol_name, force, kw in (("external", aforce, {}),
+                                        ("bfs_ez", None, dict(bfs_L=5, ideal_vel=ivel, act_scale=5.0))):
+                args = (apos, avel, force, ish, cfg)
+                got = k3.fused_hd_step(*args, thresh=THRESH, stats=stats, **kw)
+                want = k3.fused_hd_step_plain(*args, thresh=THRESH, stats=stats, **kw)
+                what = f"K3 B={B} squeeze={squeeze} {stats} {pol_name}"
+                errs = (check_close(got[0], want[0], 2e-4, 1e-4, what + " pos"),
+                        check_close(got[1], want[1], 2e-3, 1e-4, what + " vel"),
+                        check_close(got[2], want[2], 1e-5, 0.0, what + " haus"))
+                require(torch.equal(got[3], want[3]), f"{what}: counts differ")
+                if squeeze < 1.0:
+                    require(int(got[3].sum()) > 0, f"{what}: the squeezed fixture has no collisions")
+                k3_err = max(k3_err, *errs)
+                print(f"{what}: pos {errs[0]:.2e} vel {errs[1]:.2e} haus {errs[2]:.2e}, "
+                      f"counts equal ({int(got[3].sum())} collisions)")
+
+    # -- 7. K4 -----------------------------------------------------------
+    phase("K4 fused_rollout vs plain")
+    n3, ep_len, k4_T = 3, 100, 120
+    v3 = gt.make_vec_env("formation_hd_env", num_envs=NUM_ENVS, num_agents=n3, device=dev, seed=3)
+    soa = k4.state_to_soa(v3.reset_state())
+    soa = soa._replace(t=torch.as_tensor(rng.randint(0, ep_len, (1, NUM_ENVS)), dtype=torch.int32, device=dev))
+    kw4 = dict(length=k4_T, ep_len=ep_len, n=n3)
+    s_k, r_k = k4.fused_rollout_hd(soa, 5, **kw4)
+    s_p, r_p = k4.fused_rollout_hd_plain(soa, 5, **kw4)
+    # tolerances of tests/test_fused_rollout.py (n < 9)
+    k4_err = check_close(r_k, r_p, 2e-3, 5e-6, "K4 reward sum")
+    for name in ("ap", "av", "ishape", "ivel"):
+        k4_err = max(k4_err, check_close(getattr(s_k, name), getattr(s_p, name), 1e-5, 0.0, f"K4 {name}"))
+    require(torch.equal(s_k.t, s_p.t), "K4 episode counters differ")
+    require(bool((s_k.t < k4_T).all()), "K4: not every env reset")
+    print(f"K4 n={n3} B={NUM_ENVS} T={k4_T} ep_len={ep_len}: max abs err {k4_err:.3e} "
+          f"(state atol 1e-5; reward atol 2e-3 rtol 5e-6), counters equal, every env reset")
+
+    # -- 8. fused path (N=243) --------------------------------------------
+    phase("fused path")
+    fenv = gt.make_vec_env("formation_hd_env", num_envs=NUM_ENVS, num_agents=NUM_AGENTS,
+                           device=dev, seed=0)
+    fstate = fenv.reset_state()
+    torch.cuda.synchronize()
+    reset_counts(*kmods)
+    t0 = time.perf_counter()
+    fstate, frew = gt.rollout_statepolicy_fused(fenv.env, None, fstate, fenv.generator, STEPS,
+                                                stats="pre", policy="bfs_ez")
+    frew_host = frew.cpu()
+    first_run_s = time.perf_counter() - t0
+    fused_launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kmods}
+    print(f"{STEPS} fused steps at N={NUM_AGENTS} B={NUM_ENVS}: {first_run_s:.2f} s, launches {fused_launches}")
+    require(fused_launches["fused_step"] == STEPS, f"fused_step: {fused_launches['fused_step']} launches in {STEPS} steps")
+    require(fused_launches["reward_sym"] == STEPS + 1,
+            f"reward_sym: {fused_launches['reward_sym']} launches in {STEPS} fused steps (want one a step and one to finalize)")
+    require(fused_launches["pairforce_sym"] == 0, "the fused path launched K1")
+    require(tuple(frew_host.shape) == (STEPS, NUM_ENVS), f"fused rewards shape {tuple(frew_host.shape)}")
+    require(bool(torch.isfinite(frew_host).all()), "non-finite fused rewards")
+    require(bool(torch.isfinite(fstate.pos).all()) and bool(torch.isfinite(fstate.vel).all()),
+            "non-finite fused state")
+    t_host = fstate.t.cpu()
+    require(bool(torch.all(t_host == STEPS - fenv.env.world_length)),
+            f"fused episode counters after the auto-reset: {t_host.unique().tolist()}")
+    print(f"fused reward per step and env: mean {float(frew_host.mean()):.4f} "
+          f"min {float(frew_host.min()):.4f} max {float(frew_host.max()):.4f}")
+
+    # card against the CPU plain path, within the first episode (the card's
+    # and the CPU's generators draw different resets)
+    for n, B, T, stats in ((27, 16, 8, "pre"), (27, 16, 8, "post"), (NUM_AGENTS, 4, 3, "pre")):
+        small = gt.make_env("formation_hd_env", num_agents=n)
+        st = injected_state(n, B, 100 + n)
+        out = {}
+        for d in ("cuda", "cpu"):
+            g = torch.Generator(device=d)
+            fin, rew = gt.rollout_statepolicy_fused(small, None, gt.state_from_numpy(st, device=d), g, T,
+                                                    stats=stats, policy="bfs_ez")
+            out[d] = (fin.pos.cpu(), fin.vel.cpu(), rew.cpu())
+        (cp, cv, cr), (pp, pv, pr) = out["cuda"], out["cpu"]
+        # tolerances of tests/test_fused_rollout_hd.py
+        check_close(cp, pp, 1e-3, 1e-4, f"fused N={n} {stats} pos")
+        check_close(cv, pv, 1e-3, 1e-4, f"fused N={n} {stats} vel")
+        check_close(cr, pr, 5e-3, 1e-4, f"fused N={n} {stats} reward")
+        print(f"fused N={n} B={B} T={T} {stats}: card vs CPU plain agree "
+              f"(pos {max_err(cp, pp):.2e}, vel {max_err(cv, pv):.2e}, reward {max_err(cr, pr):.2e})")
+
+    def fused_window():
+        nonlocal fstate
+        fstate, r = gt.rollout_statepolicy_fused(fenv.env, None, fstate, fenv.generator, WINDOW,
+                                                 stats="pre", policy="bfs_ez")
+        return r.sum(0)
+
+    fused_rate = throughput(fused_window, NUM_ENVS, WINDOW, f"fused path N={NUM_AGENTS} B={NUM_ENVS}")
+    print(f"fused path / step path env-steps/s: {fused_rate / step_rate:.3f}")
+
+    # K3 against its plain version at the path's shapes; the masked K2 of a
+    # step without resets against an unconditional recompute and select.
+    fpos = fstate.pos[:, :NUM_AGENTS]
+    fvel = fstate.vel[:, :NUM_AGENTS]
+    fish = fstate.ideal_shape
+    k3kw = dict(thresh=THRESH, stats="pre", bfs_L=5, ideal_vel=fstate.ideal_vel, act_scale=5.0)
+    k3_ms, k3_plain_ms = time_pair(lambda: k3.fused_hd_step(fpos, fvel, None, fish, cfg, **k3kw),
+                                   lambda: k3.fused_hd_step_plain(fpos, fvel, None, fish, cfg, **k3kw))
+    print(f"K3 B={NUM_ENVS} bfs_ez pre: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    h_in, nc_in = k3.fused_hd_step(fpos, fvel, None, fish, cfg, **k3kw)[2:]
+    no_reset = torch.zeros(NUM_ENVS, dtype=torch.bool, device=dev)
+    fposc = fpos.contiguous()
+    masked_ms = time_ms(lambda: k2.hd_reward_stats_sym(fposc, fish, thresh=THRESH, mask=no_reset,
+                                                       fallback=(h_in, nc_in)), 20)
+
+    def unconditional():
+        h2, nc2 = k2.hd_reward_stats_sym(fposc, fish, thresh=THRESH)
+        return torch.where(no_reset, h2, h_in), torch.where(no_reset[:, None], nc2, nc_in)
+
+    uncond_ms = time_ms(unconditional, 20)
+    draw_ms = time_ms(lambda: fenv.env.reset_state(fenv.generator, NUM_ENVS), 20)
+    print(f"reset-boundary recompute on a step without resets: masked K2 {masked_ms:.4f} ms, "
+          f"unconditional K2 + select {uncond_ms:.4f} ms")
+    print(f"auto-reset draw (reset_state) {draw_ms:.4f} ms = {draw_ms / (NUM_ENVS / fused_rate * 1e3):.3f} "
+          f"of the fused step wall")
+
+    # -- 9. N=3 path (K4) -------------------------------------------------
+    phase("N=3 path")
+    soa3 = k4.state_to_soa(v3.reset_state())
+    torch.cuda.synchronize()
+    reset_counts(*kmods)
+    seed = 0
+    s3, r3 = k4.fused_rollout_hd(soa3, seed, length=N3_LENGTH, ep_len=ep_len, n=n3)
+    r3_host = r3.cpu()
+    n3_launches = {m.__name__.rsplit(".", 1)[1]: m.launches for m in kmods}
+    print(f"{N3_LENGTH} steps at n={n3} B={NUM_ENVS}: launches {n3_launches}")
+    require(n3_launches["fused_rollout"] == 1, "fused_rollout: not one launch for one call")
+    require(bool(torch.isfinite(r3_host).all()), "N=3: non-finite reward sums")
+    require(bool(torch.all(s3.t.cpu() == N3_LENGTH % ep_len)), "N=3: episode counters after the resets")
+    back = k4.soa_to_state(s3, v3.reset_state())
+    require(bool(torch.isfinite(back.pos).all()), "N=3: non-finite state")
+    print(f"N=3 reward sum per env over {N3_LENGTH} steps: mean {float(r3_host.mean()):.4f}")
+
+    def n3_window():
+        nonlocal s3, seed
+        seed += 1
+        s3, r = k4.fused_rollout_hd(s3, seed, length=N3_LENGTH, ep_len=ep_len, n=n3)
+        return r
+
+    throughput(n3_window, NUM_ENVS, N3_LENGTH, f"N=3 path n={n3} B={NUM_ENVS}")
+    k4_ms, k4_plain_ms = time_pair(lambda: k4.fused_rollout_hd(soa3, 1, length=N3_LENGTH, ep_len=ep_len, n=n3),
+                                   lambda: k4.fused_rollout_hd_plain(soa3, 1, length=N3_LENGTH, ep_len=ep_len, n=n3),
+                                   plain_reps=1)
+    print(f"K4 n={n3} B={NUM_ENVS} length {N3_LENGTH}: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
+
+    src = "gym_formation_tpu_torch/csrc/"
+    pallas = "gym_formation_tpu/ops/pallas/"
     kernels = [
-        dict(name="pairforce_sym", route="cuda", source="gym_formation_tpu_torch/csrc/pairforce_sym.cu",
-             replaces="gym_formation_tpu/ops/pallas/pairforce_sym.py:264",
-             launches=launches["pairforce_sym"], max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms),
-        dict(name="reward_sym", route="cuda", source="gym_formation_tpu_torch/csrc/reward_sym.cu",
-             replaces="gym_formation_tpu/ops/pallas/reward_sym.py:183",
-             launches=launches["reward_sym"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms),
+        dict(name="pairforce_sym", route="cuda", source=src + "pairforce_sym.cu",
+             replaces=pallas + "pairforce_sym.py:264",
+             launches=step_launches["pairforce_sym"], max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms),
+        dict(name="reward_sym", route="cuda", source=src + "reward_sym.cu",
+             replaces=pallas + "reward_sym.py:183",
+             launches=step_launches["reward_sym"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms),
+        dict(name="fused_step", route="cuda", source=src + "fused_step.cu",
+             replaces=pallas + "fused_step.py:314",
+             launches=fused_launches["fused_step"], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms),
+        dict(name="fused_rollout", route="cuda", source=src + "fused_rollout.cu",
+             replaces=pallas + "fused_rollout.py:331",
+             launches=n3_launches["fused_rollout"], max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

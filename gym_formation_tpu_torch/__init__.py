@@ -9,7 +9,10 @@ kernel wrapper runs its plain PyTorch version instead.
 
 Ported so far: the ``formation_hd_env`` step path under the scripted
 hierarchical controller, with the pair-force (K1) and reward-statistics (K2)
-kernels.  Importing this package makes no CUDA call and never imports JAX.
+kernels; the fused rollout :func:`rollout_statepolicy_fused` on the fused
+step kernel (K3, with the BFS + ezpolicy expansion in-kernel); and the
+whole-rollout kernel (K4, ``ops.kernels.fused_rollout``).  Importing this
+package makes no CUDA call and never imports JAX.
 """
 
 from . import spaces
@@ -19,6 +22,7 @@ from .env import (
     VecFormationEnv,
     rollout,
     rollout_statepolicy,
+    rollout_statepolicy_fused,
     rollout_statepolicy_rewardsum,
 )
 from .envs import SCENARIOS, generate_shape, make_scenario, register
@@ -81,6 +85,7 @@ __all__ = [
     "rollout",
     "rollout_statepolicy",
     "rollout_statepolicy_rewardsum",
+    "rollout_statepolicy_fused",
     "generate_shape",
     "ezpolicy",
     "ezpolicy_batched",

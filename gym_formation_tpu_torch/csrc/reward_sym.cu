@@ -25,45 +25,32 @@
 // predicate's squared distance is rounded step by step (__fmul_rn,
 // __fadd_rn): nvcc would otherwise contract dx*dx + dy*dy into an FMA and
 // move pairs that sit on the threshold.  d^2 is compared with thresh^2, as
-// in the TPU kernel.
+// in the TPU kernel.  The block body is hd_stats_block (common.cuh), which
+// K3 shares.
+//
+// Masked form (mask != NULL): the block of an env whose mask byte is 0
+// copies that env's rows of the fallback (haus_fb, ncoll_fb) and returns
+// without computing.  The fused rollout recomputes the statistics only for
+// envs that auto-reset, and launches this every step without asking the
+// host whether any did.
 
-#include <cuda_runtime.h>
-#include <float.h>
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_down_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum (is_max = false) or max (is_max = true); every thread gets
-// the result.  blockDim.x is a multiple of 32; scratch holds 32 floats.
-__device__ float block_reduce(float v, float* scratch, bool is_max) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();  // scratch may still be read by a previous reduction
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float w = lane < nwarps ? scratch[lane] : (is_max ? -FLT_MAX : 0.f);
-    w = is_max ? warp_max(w) : warp_sum(w);
-    if (lane == 0) scratch[0] = w;
-  }
-  __syncthreads();
-  return scratch[0];
-}
+#include "common.cuh"
 
 __global__ void reward_sym_kernel(const float* __restrict__ apos,
                                   const float* __restrict__ ishape,
+                                  const unsigned char* __restrict__ mask,
+                                  const float* __restrict__ haus_fb,
+                                  const float* __restrict__ ncoll_fb,
                                   float* __restrict__ haus,
                                   float* __restrict__ ncoll, int N,
                                   float thresh2) {
+  const int b = blockIdx.x;
+  if (mask != nullptr && !mask[b]) {  // uniform per block: no sync skipped
+    for (int t = threadIdx.x; t < N; t += blockDim.x)
+      ncoll[(size_t)b * N + t] = ncoll_fb[(size_t)b * N + t];
+    if (threadIdx.x == 0) haus[b] = haus_fb[b];
+    return;
+  }
   extern __shared__ float sh[];
   float* rx = sh;          // raw agent x
   float* ry = sh + N;      // raw agent y
@@ -72,58 +59,30 @@ __global__ void reward_sym_kernel(const float* __restrict__ apos,
   float* sx = sh + 4 * N;  // shape x
   float* sy = sh + 5 * N;  // shape y
   float* scratch = sh + 6 * N;
-  const size_t base = (size_t)blockIdx.x * N * 2;
-
-  float px = 0.f, py = 0.f;
+  const size_t base = (size_t)b * N * 2;
   for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    const float x = apos[base + 2 * t], y = apos[base + 2 * t + 1];
-    rx[t] = x;
-    ry[t] = y;
+    rx[t] = apos[base + 2 * t];
+    ry[t] = apos[base + 2 * t + 1];
     sx[t] = ishape[base + 2 * t];
     sy[t] = ishape[base + 2 * t + 1];
-    px += x;
-    py += y;
-  }
-  const float mx = block_reduce(px, scratch, false) / (float)N;
-  const float my = block_reduce(py, scratch, false) / (float)N;
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    cx[t] = rx[t] - mx;
-    cy[t] = ry[t] - my;
   }
   __syncthreads();
-
-  float worst = 0.f;  // squared distances are >= 0
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const float ax = cx[i], ay = cy[i];  // agent i, centred
-    const float vx = sx[i], vy = sy[i];  // vertex i
-    const float qx = rx[i], qy = ry[i];  // agent i, raw
-    float rmin = FLT_MAX, cmin = FLT_MAX;
-    int cnt = 0;
-    for (int j = 0; j < N; ++j) {
-      const float dx = ax - sx[j], dy = ay - sy[j];
-      rmin = fminf(rmin, dx * dx + dy * dy);
-      const float ex = cx[j] - vx, ey = cy[j] - vy;
-      cmin = fminf(cmin, ex * ex + ey * ey);
-      const float gx = __fsub_rn(qx, rx[j]), gy = __fsub_rn(qy, ry[j]);
-      const float d2 = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
-      cnt += (j != i) && (d2 < thresh2);
-    }
-    worst = fmaxf(worst, fmaxf(rmin, cmin));
-    ncoll[(size_t)blockIdx.x * N + i] = (float)cnt;
-  }
-  const float m = block_reduce(worst, scratch, true);
-  if (threadIdx.x == 0) haus[blockIdx.x] = sqrtf(m);
+  const float h = hd_stats_block(rx, ry, sx, sy, cx, cy, N, thresh2, true,
+                                 ncoll + (size_t)b * N, scratch);
+  if (threadIdx.x == 0) haus[b] = h;
 }
 
 extern "C" int reward_sym_launch(const void* apos, const void* ishape,
-                                 void* haus, void* ncoll, int B, int N,
-                                 float thresh2, void* stream) {
+                                 const void* mask, const void* haus_fb,
+                                 const void* ncoll_fb, void* haus, void* ncoll,
+                                 int B, int N, float thresh2, void* stream) {
   if (B == 0 || N == 0) return 0;
   int threads = ((N + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   const size_t smem = ((size_t)6 * N + 32) * sizeof(float);
   reward_sym_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)apos, (const float*)ishape, (float*)haus, (float*)ncoll, N,
-      thresh2);
+      (const float*)apos, (const float*)ishape, (const unsigned char*)mask,
+      (const float*)haus_fb, (const float*)ncoll_fb, (float*)haus,
+      (float*)ncoll, N, thresh2);
   return (int)cudaGetLastError();
 }

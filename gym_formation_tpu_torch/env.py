@@ -25,9 +25,11 @@ import numpy as np
 import torch
 
 from . import _device, spaces
-from .core.physics import world_step
+from .core.physics import _collide_subset, world_step
 from .core.types import EnvState, StepOut
 from .envs.scenario import Scenario
+from .models.bfs import num_layers
+from .ops.kernels import fused_step, reward_sym
 
 
 def _select(flag: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
@@ -270,3 +272,132 @@ def rollout_statepolicy_rewardsum(
         state, out = env.step_state(state, actions, generator)
         acc = acc + out.reward.sum(-1)
     return state, acc
+
+
+def rollout_statepolicy_fused(
+    env: FormationEnv,
+    state_policy_fn: Optional[Callable],
+    state: EnvState,
+    generator: torch.Generator,
+    length: int,
+    stats: str = "pre",
+    policy: str = "external",
+):
+    """Rollout driving the fused physics + reward step kernel K3
+    (:func:`~gym_formation_tpu_torch.ops.kernels.fused_step.fused_hd_step`).
+
+    The same steps as :func:`rollout_statepolicy`: physics, the hd reward
+    with the shared-reward broadcast, and the time-limit auto-reset.  The
+    generator is consumed in the same order (the policy's draws, then a
+    fresh episode batch every step), so with the same generator state the
+    two rollouts give the same trajectories across resets, to the kernel's
+    float32 rounding.
+
+    ``stats="post"`` takes each step's reward statistics from K3 on the
+    integrated positions.  ``stats="pre"`` takes them from K3 on the *input*
+    positions, which are the previous step's integrated ones, so step t
+    finalizes the reward of step t-1.  Where an env auto-reset in between,
+    K2 recomputes its statistics from the carried pre-reset positions; it is
+    launched every step with the reset mask (envs that did not reset copy
+    and return), so no step waits for the host to ask whether any env
+    reset.  The last step is finalized after the loop.
+
+    ``policy="bfs_ez"`` runs the arity-3 BFS + ezpolicy expansion inside
+    K3, and ``state_policy_fn`` is unused; ``policy="external"`` calls
+    ``state_policy_fn(state, generator)`` every step for the actions.
+
+    The JAX package also has a planes body of this function, which keeps
+    the state in ``[E, B]`` planes between steps so that the TPU's lanes
+    stay full; its steps are those of the arrays body, so the port has this
+    one body and none of the ``layout``, ``tile`` and ``interpret``
+    arguments.
+
+    Returns ``(state, rewards [T, B])``, ``rewards[t, b]`` the sum over
+    agents of env b's step-t reward vector.
+    """
+    scen, cfg = env.scenario, env.cfg
+    n = cfg.n_agents
+    if stats not in ("pre", "post"):
+        raise ValueError(f"stats must be 'pre' or 'post', got {stats!r}")
+    if policy not in ("external", "bfs_ez"):
+        raise ValueError(f"policy must be 'external' or 'bfs_ez', got {policy!r}")
+    sub = _collide_subset(cfg)
+    if sub is None:
+        sub_cfg = cfg
+    else:
+        lo, hi, idx, sub_cfg = sub
+        if idx is not None or (lo, hi) != (0, n):
+            raise ValueError("the fused rollout wants the agents as the colliding subset")
+    if not (env.shared_reward and env.auto_reset):
+        raise ValueError("the fused rollout wants a shared reward and auto-reset")
+    if cfg.has_noise() or not bool(np.all(cfg.silent)):
+        raise ValueError("the fused rollout wants silent agents without noise")
+    thresh = float(2.0 * cfg.size[0] * scen.collision_factor)
+    B = state.pos.shape[0]
+    if policy == "bfs_ez":
+        bfs_L = num_layers(n, 3)
+        sens, coef = np.unique(env._sensitivity), np.unique(cfg.act_coef[:n])
+        if len(sens) != 1 or len(coef) != 1:
+            raise ValueError("policy='bfs_ez' wants one sensitivity and act_coef for all agents")
+        act_scale = float(sens[0] * coef[0])
+    else:
+        act_mult = env._sensitivity * cfg.act_coef[:n]
+
+    def phys_reward(st):
+        """Policy and K3.  Returns the state after the physics (before the
+        reset), the new agent positions, the statistics and the velocity
+        term."""
+        if policy == "bfs_ez":
+            aforce, kw = None, dict(bfs_L=bfs_L, ideal_vel=st.ideal_vel, act_scale=act_scale)
+        else:
+            actions = state_policy_fn(scen.pre_obs(st), generator)
+            mult = _device.const(act_mult, st.pos, torch.float32)[:, None]
+            aforce, kw = actions[..., : cfg.dim_p].to(torch.float32) * mult, {}
+        npos, nvel, haus, ncoll = fused_step.fused_hd_step(
+            st.pos[:, :n], st.vel[:, :n], aforce, st.ideal_shape, sub_cfg,
+            thresh=thresh, stats=stats, **kw,
+        )
+        st = st.replace(
+            pos=torch.cat([npos.to(st.pos.dtype), st.pos[:, n:]], 1),
+            vel=torch.cat([nvel.to(st.vel.dtype), st.vel[:, n:]], 1),
+            c=torch.zeros_like(st.c),
+            t=st.t + 1,
+        )
+        dv = st.ideal_vel - nvel.mean(1)
+        return scen.pre_obs(st), npos, haus, ncoll, -torch.sqrt((dv * dv).sum(-1))
+
+    def finalize(haus, ncoll, velterm):
+        """Sum over agents of the step's reward vector, shared broadcast
+        included: n * (n * (velterm - haus) - sum ncoll)."""
+        return n * (n * (velterm - haus) - ncoll.sum(-1))
+
+    def auto_reset(st):
+        done = st.t >= env.world_length
+        return _select(done, env.reset_state(generator, B), st), done
+
+    rewards = []
+    if stats == "post":
+        for _ in range(length):
+            state, _, haus, ncoll, velterm = phys_reward(state)
+            rewards.append(finalize(haus, ncoll, velterm))
+            state, _ = auto_reset(state)
+        return state, torch.stack(rewards)
+
+    # "pre": step t finalizes step t-1 (rewards[0] is a placeholder for
+    # step -1 and is dropped)
+    prev_pos = state.pos[:, :n].contiguous()
+    prev_ishape = state.ideal_shape
+    prev_velterm = state.pos.new_zeros(B)
+    prev_done = torch.zeros(B, dtype=torch.bool, device=state.pos.device)
+    for _ in range(length):
+        ishape_t = state.ideal_shape
+        state, npos, haus_in, ncoll_in, velterm = phys_reward(state)
+        haus, ncoll = reward_sym.hd_reward_stats_sym(
+            prev_pos, prev_ishape, thresh=thresh, mask=prev_done, fallback=(haus_in, ncoll_in)
+        )
+        rewards.append(finalize(haus, ncoll, prev_velterm))
+        prev_pos, prev_ishape, prev_velterm = npos, ishape_t, velterm  # pre-reset
+        state, prev_done = auto_reset(state)
+    haus, ncoll = reward_sym.hd_reward_stats_sym(prev_pos, prev_ishape, thresh=thresh)
+    rewards.append(finalize(haus, ncoll, prev_velterm))
+    return state, torch.stack(rewards[1:])

@@ -29,13 +29,21 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 # C signature of every launcher in csrc/: pointers and the stream as void*,
 # so ctypes passes 64-bit values.  Each returns cudaGetLastError().
 SIGNATURES = {
     # pos, force, B, E, k, invk, cf, dmin, stream
     "pairforce_sym_launch": (_P, _P, _I, _I, _F, _F, _F, _F, _P),
-    # apos, ishape, haus, ncoll, B, N, thresh2, stream
-    "reward_sym_launch": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # apos, ishape, mask, haus_fb, ncoll_fb, haus, ncoll, B, N, thresh2, stream
+    "reward_sym_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # apos, avel, aforce, ishape, ivel, npos, nvel, haus, ncoll, B, N,
+    # pos_bstride, vel_bstride, L, post, k, invk, cf, dmin, thresh2, keep,
+    # fscale, dt, max_speed, act_scale, stream
+    "fused_step_launch": (_P,) * 9 + (_I,) * 6 + (_F,) * 10 + (_P,),
+    # ap, av, ishape, ivel, t (in), ap, av, ishape, ivel, t, reward (out), B,
+    # n, T, ep_len, seed, sens, dmin, thresh2, cf, margin, invk, keep, dt, stream
+    "fused_rollout_launch": (_P,) * 11 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
 }
 
 _lib = None

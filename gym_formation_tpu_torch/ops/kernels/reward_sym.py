@@ -11,7 +11,7 @@ function in plain PyTorch.  ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,14 +26,22 @@ MAX_AGENTS = (48 * 1024 // 4 - 32) // 6
 
 
 def hd_reward_stats_sym_plain(
-    apos: torch.Tensor, ishape: torch.Tensor, *, thresh: float
+    apos: torch.Tensor,
+    ishape: torch.Tensor,
+    *,
+    thresh: float,
+    mask: Optional[torch.Tensor] = None,
+    fallback: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of K2.  ``apos`` [B, N, 2] raw agent positions,
     ``ishape`` [B, N, 2] centred ideal shape → (haus [B], ncoll [B, N]).
 
     Squared distances feed the min/max reductions and one sqrt is taken on
     the reduced value; collisions compare d² with thresh² on the raw
-    positions, each square rounded on its own (no fused multiply-add)."""
+    positions, each square rounded on its own (no fused multiply-add).
+
+    With ``mask`` [B] bool and ``fallback`` (haus [B], ncoll [B, N]), envs
+    whose mask is False return their fallback rows instead."""
     N = apos.shape[-2]
     c = apos - apos.mean(-2, keepdim=True)
     dx = c[:, :, None, 0] - ishape[:, None, :, 0]  # [B, agent, vertex]
@@ -44,16 +52,33 @@ def hd_reward_stats_sym_plain(
     gy = apos[:, :, None, 1] - apos[:, None, :, 1]
     hits = (gx * gx + gy * gy) < thresh * thresh
     hits &= ~torch.eye(N, dtype=torch.bool, device=apos.device)
-    return haus, hits.sum(-1).to(apos.dtype)
+    ncoll = hits.sum(-1).to(apos.dtype)
+    if mask is not None:
+        haus = torch.where(mask, haus, fallback[0])
+        ncoll = torch.where(mask[:, None], ncoll, fallback[1])
+    return haus, ncoll
 
 
 def hd_reward_stats_sym(
-    apos: torch.Tensor, ishape: torch.Tensor, *, thresh: float
+    apos: torch.Tensor,
+    ishape: torch.Tensor,
+    *,
+    thresh: float,
+    mask: Optional[torch.Tensor] = None,
+    fallback: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hausdorff [B], per-agent collision count [B, N]) for the
-    formation_hd reward with one uniform collision distance ``thresh``."""
+    formation_hd reward with one uniform collision distance ``thresh``.
+
+    ``mask`` [B] bool with ``fallback`` (haus [B], ncoll [B, N]): compute
+    only the envs whose mask is True and return the fallback rows for the
+    rest.  The kernel's blocks of the other envs copy and return, so the
+    call costs little when few envs are masked in, and the host never asks
+    whether any are."""
+    if (mask is None) != (fallback is None):
+        raise ValueError("K2 takes mask and fallback together")
     if not _device.use_kernel(apos):
-        return hd_reward_stats_sym_plain(apos, ishape, thresh=thresh)
+        return hd_reward_stats_sym_plain(apos, ishape, thresh=thresh, mask=mask, fallback=fallback)
     for name, t in (("apos", apos), ("ishape", ishape)):
         if t.dtype != torch.float32 or t.dim() != 3 or t.shape[-1] != 2:
             raise ValueError(f"K2 takes float32 [B, N, 2] {name}, got {t.dtype} {tuple(t.shape)}")
@@ -64,10 +89,19 @@ def hd_reward_stats_sym(
     B, N, _ = apos.shape
     if N > MAX_AGENTS:
         raise ValueError(f"K2 holds at most {MAX_AGENTS} agents per env, got {N}")
+    ptrs = (None, None, None)
+    if mask is not None:
+        h_fb, nc_fb = fallback
+        for name, t, shape, dtype in (("mask", mask, (B,), torch.bool),
+                                      ("fallback haus", h_fb, (B,), torch.float32),
+                                      ("fallback ncoll", nc_fb, (B, N), torch.float32)):
+            if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous() or t.device != apos.device:
+                raise ValueError(f"K2 takes a contiguous {dtype} {name} of shape {shape} on the card")
+        ptrs = (mask.data_ptr(), h_fb.data_ptr(), nc_fb.data_ptr())
     haus = torch.empty(B, dtype=torch.float32, device=apos.device)
     ncoll = torch.empty(B, N, dtype=torch.float32, device=apos.device)
     rc = _build.lib().reward_sym_launch(
-        apos.data_ptr(), ishape.data_ptr(), haus.data_ptr(), ncoll.data_ptr(),
+        apos.data_ptr(), ishape.data_ptr(), *ptrs, haus.data_ptr(), ncoll.data_ptr(),
         B, N, float(thresh) * float(thresh),
         torch.cuda.current_stream(apos.device).cuda_stream,
     )

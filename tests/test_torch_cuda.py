@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each kernel against its plain
 version at shapes the CPU tests cannot reach (odd sizes, more entities than
-threads in a block), the wrappers' input checks, and a step of the env on
-the card.  Marked ``cuda``; each test skips where there is no CUDA device.
+threads in a block), the wrappers' input checks, a step of the env and a
+fused rollout on the card.  Marked ``cuda``; each test skips where there is no CUDA device.
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
@@ -15,6 +15,9 @@ import torch
 
 import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch.core import make_world_cfg
+from gym_formation_tpu_torch.envs.formation_hd import FormationHDScenario
+from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+from gym_formation_tpu_torch.ops.kernels import fused_step as k3
 from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
 from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
 
@@ -70,3 +73,146 @@ def test_env_step_on_card_launches_both_kernels(dev):
     assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
     assert out.obs.shape == (8, 27, 162) and out.obs.device.type == "cuda"
     assert torch.isfinite(out.reward).all()
+
+
+def _k3_inputs(dev, N, B, seed, squeeze=0.3):
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    ishape = rng.uniform(-1, 1, (B, N, 2))
+    return dict(
+        apos=t(rng.uniform(-1, 1, (B, N, 2)) * squeeze),
+        avel=t(rng.uniform(-0.5, 0.5, (B, N, 2))),
+        aforce=t(rng.uniform(-5, 5, (B, N, 2))),
+        ishape=t(ishape - ishape.mean(1, keepdims=True)),
+        ideal_vel=t(rng.uniform(-1, 1, (B, 2))),
+    )
+
+
+def _k3_check(got, want):
+    """pos, vel, haus to the tolerances of tests/test_fused_step.py; the
+    counts exact."""
+    torch.testing.assert_close(got[0], want[0], atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(got[1], want[1], atol=2e-3, rtol=1e-4)
+    torch.testing.assert_close(got[2], want[2], atol=1e-5, rtol=0)
+    assert torch.equal(got[3], want[3])
+
+
+@pytest.mark.parametrize("stats", ["pre", "post"])
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("N", [1, 5, 100, 243])
+def test_k3_external_matches_plain(dev, N, B, stats):
+    x = _k3_inputs(dev, N, B, N)
+    cfg = make_world_cfg(N, 0, agent_size=0.03, agent_max_speed=1.0 if N == 100 else None)
+    args = (x["apos"], x["avel"], x["aforce"], x["ishape"], cfg)
+    got = k3.fused_hd_step(*args, thresh=0.03, stats=stats)
+    want = k3.fused_hd_step_plain(*args, thresh=0.03, stats=stats)
+    _k3_check(got, want)
+
+
+@pytest.mark.parametrize("stats", ["pre", "post"])
+@pytest.mark.parametrize("B", [1, 7])
+@pytest.mark.parametrize("L", [1, 3, 5])
+def test_k3_bfs_matches_plain(dev, L, B, stats):
+    """The in-kernel policy rounds as the plain one, so its actions, and
+    with them the step, agree to the step's own tolerances."""
+    N = 3**L
+    x = _k3_inputs(dev, N, B, 100 + N)
+    cfg = make_world_cfg(N, 0, agent_size=0.03)
+    kw = dict(thresh=0.03, stats=stats, bfs_L=L, ideal_vel=x["ideal_vel"], act_scale=5.0)
+    got = k3.fused_hd_step(x["apos"], x["avel"], None, x["ishape"], cfg, **kw)
+    want = k3.fused_hd_step_plain(x["apos"], x["avel"], None, x["ishape"], cfg, **kw)
+    _k3_check(got, want)
+
+
+def test_k3_reads_a_strided_agent_slice(dev):
+    """The fused rollout hands K3 the agents' rows out of all entities."""
+    N, B = 27, 5
+    x = _k3_inputs(dev, N, B, 3)
+    pos = torch.cat([x["apos"], torch.zeros_like(x["apos"])], 1)
+    vel = torch.cat([x["avel"], torch.zeros_like(x["avel"])], 1)
+    cfg = make_world_cfg(N, 0, agent_size=0.03)
+    got = k3.fused_hd_step(pos[:, :N], vel[:, :N], x["aforce"], x["ishape"], cfg, thresh=0.03)
+    want = k3.fused_hd_step(x["apos"], x["avel"], x["aforce"], x["ishape"], cfg, thresh=0.03)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_k2_masked_matches_plain(dev):
+    N, B = 243, 9
+    x = _k3_inputs(dev, N, B, 5, squeeze=0.05)
+    mask = torch.as_tensor(np.arange(B) % 3 == 0, device=dev)
+    fb = (torch.full((B,), -1.0, device=dev), torch.full((B, N), -2.0, device=dev))
+    got = k2.hd_reward_stats_sym(x["apos"], x["ishape"], thresh=0.03, mask=mask, fallback=fb)
+    want = k2.hd_reward_stats_sym_plain(x["apos"], x["ishape"], thresh=0.03, mask=mask, fallback=fb)
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][~mask], fb[0][~mask])
+
+
+def _soa(dev, n, B, ep_len, seed):
+    rng = np.random.RandomState(seed)
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    ish = rng.uniform(-1, 1, (2 * n, B))
+    ish[:n] -= ish[:n].mean(0)
+    ish[n:] -= ish[n:].mean(0)
+    return k4.SoAState(
+        ap=f(rng.uniform(-1, 1, (2 * n, B))), av=f(rng.uniform(-0.2, 0.2, (2 * n, B))),
+        ishape=f(ish), ivel=f(rng.uniform(-1, 1, (2, B))),
+        t=torch.as_tensor(rng.randint(0, ep_len, (1, B)), dtype=torch.int32, device=dev),
+    )
+
+
+@pytest.mark.parametrize("n", [3, 4, 9])
+@pytest.mark.parametrize("B", [1, 7])
+def test_k4_matches_plain_across_resets(dev, n, B):
+    """Tolerances of tests/test_fused_rollout.py; the episode counters and
+    the resets' draws exactly."""
+    soa = _soa(dev, n, B, 10, n + B)
+    kw = dict(length=25, ep_len=10, n=n)
+    s_k, r_k = k4.fused_rollout_hd(soa, 11, **kw)
+    s_p, r_p = k4.fused_rollout_hd_plain(soa, 11, **kw)
+    tol = 1e-5 if n < 9 else 3e-4
+    torch.testing.assert_close(r_k, r_p, rtol=5e-6, atol=2e-3)
+    for name in ("ap", "av", "ishape", "ivel"):
+        torch.testing.assert_close(getattr(s_k, name), getattr(s_p, name), atol=tol, rtol=0)
+    assert torch.equal(s_k.t, s_p.t)
+
+
+def test_k3_k4_wrappers_reject_bad_inputs(dev):
+    x = _k3_inputs(dev, 9, 2, 0)
+    cfg = make_world_cfg(9, 0, agent_size=0.03)
+    with pytest.raises(ValueError, match="float32"):
+        k3.fused_hd_step(x["apos"].double(), x["avel"], x["aforce"], x["ishape"], cfg, thresh=0.03)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.fused_hd_step(x["apos"], x["avel"], x["aforce"].transpose(0, 1).contiguous().transpose(0, 1),
+                         x["ishape"], cfg, thresh=0.03)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = _k3_inputs(dev, 2000, 1, 0)
+        k3.fused_hd_step(big["apos"], big["avel"], big["aforce"], big["ishape"],
+                         make_world_cfg(2000, 0, agent_size=0.03), thresh=0.03)
+    soa = _soa(dev, 5, 4, 10, 0)
+    with pytest.raises(ValueError, match="built for n"):
+        k4.fused_rollout_hd(soa, 0, length=2, ep_len=10, n=5)
+    soa = _soa(dev, 3, 4, 10, 0)
+    with pytest.raises(ValueError, match="int32"):
+        k4.fused_rollout_hd(soa._replace(t=soa.t.long()), 0, length=2, ep_len=10, n=3)
+
+
+@pytest.mark.parametrize("stats", ["pre", "post"])
+def test_fused_rollout_on_card_launches_k3_and_k2(dev, stats):
+    """K3 once a step; K2 (masked) once a step and once to finalize in pre
+    mode, never in post mode.  The rewards match the card's step path."""
+    n, B, T = 27, 6, 12
+    env = gt.FormationEnv(FormationHDScenario(num_agents=n, episode_length=5))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = env.reset_state(g, B)
+    before = (k3.launches, k2.launches)
+    g.manual_seed(1)
+    fin, rew = gt.rollout_statepolicy_fused(env, None, state, g, T, stats=stats, policy="bfs_ez")
+    assert (k3.launches - before[0], k2.launches - before[1]) == (T, T + 1 if stats == "pre" else 0)
+    pol = lambda s, gen: gt.bfs_actions_from_state(gt.ezpolicy_batched, env.scenario, s, 3)
+    g.manual_seed(1)
+    ref_fin, ref = gt.rollout_statepolicy(env, pol, state, g, T)
+    torch.testing.assert_close(rew, ref.sum(-1), atol=5e-3, rtol=1e-4)
+    assert torch.equal(fin.t, ref_fin.t) and rew.device.type == "cuda"
