@@ -32,6 +32,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    version's; K2's masked form beside an unconditional recompute.
 9. N=3 path: fused_rollout_hd at n=3, B=4096, length 256 (one K4 launch a
    window); env-steps/s as above, and K4's time beside its plain version's.
+10. K5 (MAPPO collection) against its plain version: n=3, B=4096, T=25,
+   ep_len 10 with the episode counters spread so that every env resets;
+   trajectory and state within tolerance, done and counters exact, stored
+   logp and value against the networks re-applied.  Kernel and plain times.
+11. K9 (PPO epoch gradient) against its plain version on a real K5
+   trajectory after _prepare (M = 102,400), every gradient leaf within rtol
+   2e-3, atol 2e-6, two runs bit for bit, and the learner's epoch gradient
+   against autograd of its loss.  Kernel and plain times.
+12. MAPPO N=3 path: MAPPO(make_env("formation_hd_env", num_agents=3),
+   MAPPOConfig(fused_update=True), num_envs=4096) on the card; the auto gate
+   must turn fused_collect on.  One warm-up and 3 timed train_step calls,
+   each closed by a host fetch of the metrics: K5 once and K9 ppo_epochs
+   times an iteration, K1-K4 never.  Prints training env-steps/s and the
+   collect / prepare / update split (CUDA events), the same with the
+   autograd update, the card against the CPU plain versions on one small
+   iteration, and mean_step_reward over 12 iterations.
+13. MAPPO N=243 structured path: B=1024, the default config, so the auto
+   gate takes the obs-free path.  One warm-up and 3 timed iterations: K1
+   and K2 once an env step, K5 and K9 never, no call of observe.  Prints
+   env-steps/s, agent-steps/s, the split and the peak device memory, and
+   one structured_bf16 iteration's time.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
@@ -148,6 +169,296 @@ def injected_state(n, B, seed):
     )
 
 
+def random_networks(n, seed, dev, log_std=-0.5):
+    """A GaussianActor and ValueCritic for n agents, orthogonal init from a
+    seed, with head gains raised so that the actions and values vary."""
+    from gym_formation_tpu_torch.models.networks import GaussianActor, ValueCritic
+
+    g = torch.Generator()
+    g.manual_seed(seed)
+    actor = GaussianActor(6 * n, 2, (64, 64), generator=g)
+    critic = ValueCritic(6 * n * n, (64, 64), generator=g)
+    with torch.no_grad():
+        actor.head.weight.mul_(50.0)
+        actor.log_std.fill_(log_std)
+    return actor.to(dev), critic.to(dev)
+
+
+def phase_k5(dev, rng):
+    """K5 against its plain version at the N=3 training shape, every env
+    crossing a reset; and the stored logp and value against the networks
+    re-applied to the stored obs and actions."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.models.networks import gaussian_logp
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+
+    n, B, T, ep_len = 3, NUM_ENVS, 25, 10
+    v3 = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device=dev, seed=5)
+    soa = k4.state_to_soa(v3.reset_state())
+    soa = soa._replace(t=torch.as_tensor(rng.randint(0, ep_len, (1, B)), dtype=torch.int32, device=dev))
+    actor, critic = random_networks(n, 7, dev)
+    aops, cops = k5.actor_planes(actor), k5.critic_planes(critic)
+    kw = dict(length=T, ep_len=ep_len, n=n)
+    s_k, tr_k = k5.fused_collect_hd(soa, aops, cops, 9, **kw)
+    s_p, tr_p = k5.fused_collect_hd_plain(soa, aops, cops, 9, **kw)
+    torch.cuda.synchronize()
+    # tolerances: state as K4's (1e-5); trajectory atol 1e-4, rtol 1e-5;
+    # done and the episode counters exact
+    err = 0.0
+    for name in ("ap", "av", "ishape", "ivel"):
+        err = max(err, check_close(getattr(s_k, name), getattr(s_p, name), 1e-5, 0.0, f"K5 {name}"))
+    for name in ("obs", "action", "logp", "value", "reward"):
+        err = max(err, check_close(tr_k[name], tr_p[name], 1e-4, 1e-5, f"K5 {name}"))
+        require(bool(torch.isfinite(tr_k[name]).all()), f"K5 {name}: non-finite")
+    require(torch.equal(s_k.t, s_p.t), "K5 episode counters differ")
+    require(torch.equal(tr_k["done"], tr_p["done"]), "K5 done flags differ")
+    require(bool(tr_k["done"].any(0).all()), "K5: not every env reset")
+    # network parity: tolerances of tests/test_fused_collect.py
+    obs = tr_k["obs"].reshape(T * B, n, 6 * n)
+    with torch.no_grad():
+        v_ref = critic(obs.reshape(T * B, -1))
+        lp_ref = gaussian_logp(*actor(obs), tr_k["action"].reshape(T * B, n, 2))
+    check_close(tr_k["value"].reshape(-1), v_ref, 1e-4, 1e-4, "K5 value vs critic")
+    check_close(tr_k["logp"].reshape(T * B, n), lp_ref, 1e-4, 1e-4, "K5 logp vs actor")
+    ms, plain_ms = time_pair(lambda: k5.fused_collect_hd(soa, aops, cops, 9, **kw),
+                             lambda: k5.fused_collect_hd_plain(soa, aops, cops, 9, **kw), plain_reps=1)
+    print(f"K5 n={n} B={B} T={T} ep_len={ep_len}: max abs err {err:.3e} (state atol 1e-5; "
+          f"trajectory atol 1e-4 rtol 1e-5), done and counters equal, every env reset; "
+          f"logp and value match the networks re-applied")
+    print(f"K5 n={n} B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain_ms)
+
+
+def mappo_n3(dev, num_envs, **cfg):
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
+
+    return MAPPO(gt.make_env("formation_hd_env", num_agents=3), MAPPOConfig(**cfg),
+                 num_envs=num_envs, device=dev)
+
+
+def phase_k9(dev):
+    """K9 against its plain version, and the fused epoch gradient against
+    autograd of the loss, on a real K5 trajectory after _prepare."""
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    algo = mappo_n3(dev, NUM_ENVS, fused_update=True)
+    require(algo.fused_collect, "MAPPO N=3 on the card: fused_collect did not come on")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    ts, es, obs = algo.init(g)
+    with torch.no_grad():
+        es, obs, traj, _, last_value = algo._collect_fused(ts, es, obs, g)
+    ts, data = algo._prepare(ts, traj, last_value)
+    M = data["obs"].shape[0]
+    f = lambda t: t.detach().float().contiguous()
+    (a1, a2), (c1, c2) = ts.actor.mlp.layers, ts.critic.mlp.layers
+    aops = (f(a1.weight.T), f(a1.bias), f(a2.weight.T), f(a2.bias), f(ts.actor.head.weight.T),
+            f(ts.actor.head.bias), f(ts.actor.bounded_log_std()))
+    cops = (f(c1.weight.T), f(c1.bias), f(c2.weight.T), f(c2.bias), f(ts.critic.head.weight.T),
+            f(ts.critic.head.bias))
+    sub = {k: data[k] for k in ("obs", "action", "logp", "adv", "value", "target")}
+    kw = dict(n_agents=3, act_dim=2, clip_eps=algo.cfg.clip_eps, huber_delta=algo.cfg.huber_delta,
+              value_coef=algo.cfg.value_coef)
+    got = k9.fused_ppo_grads(sub, aops, cops, **kw)
+    want = k9.fused_ppo_grads_plain(sub, aops, cops, **kw)
+    torch.cuda.synchronize()
+    # tolerance of tests/test_fused_ppo_grad.py: rtol 2e-3, atol 2e-6 a
+    # gradient leaf; the metric sums as the means the learner reports
+    # (pg_loss, v_loss, approx_kl), to atol 1e-6 rtol 2e-3
+    err = 0.0
+    for i, (x, y) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
+        err = max(err, check_close(x, y, 2e-6, 2e-3, f"K9 gradient leaf {i}"))
+    per_row = torch.tensor([3 * M, M, 3 * M], dtype=torch.float32, device=dev)
+    check_close(got[2] / per_row, want[2] / per_row, 1e-6, 2e-3, "K9 metrics")
+    again = k9.fused_ppo_grads(sub, aops, cops, **kw)
+    require(all(torch.equal(x, y) for x, y in zip(got[0] + got[1], again[0] + again[1])),
+            "K9: two runs differ")
+    grads, _ = algo._fused_epoch_grads(ts, data)
+    total, _ = algo._loss(ts, data, ts.value_norm)
+    ref = torch.autograd.grad(total, ts.params())
+    for (name, _), x, y in zip(list(ts.actor.named_parameters()) + list(ts.critic.named_parameters()),
+                               grads, ref):
+        check_close(x, y, 2e-6, 2e-3, f"K9 epoch gradient vs autograd: {name}")
+    ms, plain_ms = time_pair(lambda: k9.fused_ppo_grads(sub, aops, cops, **kw),
+                             lambda: k9.fused_ppo_grads_plain(sub, aops, cops, **kw))
+    print(f"K9 M={M} (actor rows {3 * M}): max abs err {err:.3e} vs plain (rtol 2e-3, atol 2e-6 "
+          f"a leaf), deterministic; the epoch gradient matches autograd of the loss")
+    print(f"K9 M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(err=err, ms=ms, plain_ms=plain_ms)
+
+
+def train_iterations(algo, ts, es, obs, g, iters, label):
+    """``iters`` train_step calls, each closed by a host fetch of the
+    metrics and a finiteness check.  Returns the state and the walls."""
+    walls = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, es, obs, m = algo.train_step(ts, es, obs, g)
+        host = {k: float(v) for k, v in m.items()}
+        walls.append(time.perf_counter() - t0)
+        require(all(np.isfinite(v) for v in host.values()), f"{label}: non-finite metrics {host}")
+    return ts, es, obs, host, walls
+
+
+def split_iteration(algo, ts, es, obs, g):
+    """One iteration as train_step runs it, with CUDA events between
+    collect, prepare and update.  Returns ms of each and the state."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    collect = (algo._collect_structured if algo.structured_obs else
+               algo._collect_fused if algo.fused_collect else algo._collect)
+    update = algo._update_fused if algo.cfg.fused_update else algo._update
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.no_grad():
+        es, obs, traj, _, last_value = collect(ts, es, obs, g)
+    ev[1].record()
+    ts, data = algo._prepare(ts, traj, last_value)
+    ev[2].record()
+    ts, m = update(ts, data, g)
+    ev[3].record()
+    torch.cuda.synchronize()
+    require(all(np.isfinite(float(v)) for v in m.values()), "split iteration: non-finite metrics")
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    return dict(collect=ms[0], prepare=ms[1], update=ms[2]), ts, es, obs
+
+
+def fmt_split(s):
+    return ", ".join(f"{k} {v:.3f} ms" for k, v in s.items())
+
+
+def launch_counts(mods):
+    return {m.__name__.rsplit(".", 1)[1]: m.launches for m in mods}
+
+
+TIMED_ITERS = 3
+
+
+def phase_mappo_n3(dev, kmods):
+    """The MAPPO N=3 path: fused collection (K5) and fused update (K9), by
+    the auto gate, through train_step."""
+    import gym_formation_tpu_torch as gt
+
+    algo = mappo_n3(dev, NUM_ENVS, fused_update=True)
+    require(algo.fused_collect, "MAPPO N=3 on the card: the auto gate did not turn fused_collect on")
+    T, epochs = algo.cfg.rollout_len, algo.cfg.ppo_epochs
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ts, es, obs = algo.init(g)
+    ts, es, obs, _, _ = train_iterations(algo, ts, es, obs, g, 1, "MAPPO N=3 warm-up")
+    reset_counts(*kmods)
+    ts, es, obs, m, walls = train_iterations(algo, ts, es, obs, g, TIMED_ITERS, "MAPPO N=3")
+    counts = launch_counts(kmods)
+    print(f"MAPPO N=3 B={NUM_ENVS} fused: launches in {TIMED_ITERS} iterations {counts}")
+    require(counts["fused_collect"] == TIMED_ITERS, "MAPPO N=3: K5 not once an iteration")
+    require(counts["fused_ppo_grad"] == TIMED_ITERS * epochs, "MAPPO N=3: K9 not once an epoch")
+    for name in ("pairforce_sym", "reward_sym", "fused_step", "fused_rollout"):
+        require(counts[name] == 0, f"MAPPO N=3: {name} launched")
+    wall = statistics.median(walls)
+    rate = T * NUM_ENVS / wall
+    print(f"training env-steps/s MAPPO N=3 B={NUM_ENVS} fused collect + fused update: {rate:.1f} "
+          f"(iteration walls {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms)")
+    split, ts, es, obs = split_iteration(algo, ts, es, obs, g)
+    print(f"MAPPO N=3 fused iteration: {fmt_split(split)}")
+
+    auto = mappo_n3(dev, NUM_ENVS)
+    ts_a, es_a, obs_a = auto.init(g)
+    ts_a, es_a, obs_a, _, _ = train_iterations(auto, ts_a, es_a, obs_a, g, 1, "MAPPO N=3 autograd warm-up")
+    ts_a, es_a, obs_a, _, walls_a = train_iterations(auto, ts_a, es_a, obs_a, g, TIMED_ITERS, "MAPPO N=3 autograd")
+    rate_a = T * NUM_ENVS / statistics.median(walls_a)
+    split_a, *_ = split_iteration(auto, ts_a, es_a, obs_a, g)
+    print(f"training env-steps/s MAPPO N=3 B={NUM_ENVS} fused collect + autograd update: {rate_a:.1f}; "
+          f"iteration: {fmt_split(split_a)}")
+
+    # the card against the CPU's plain versions on one iteration, from the
+    # same networks, env state and K5 seed; tolerances of the slice test
+    small = {}
+    st = injected_state(3, 64, 21)
+    for d in ("cuda", "cpu"):
+        a = mappo_n3(torch.device(d), 64, rollout_len=8, fused_collect=True, fused_update=True)
+        actor, critic = random_networks(3, 3, torch.device(d))
+        t_s = a.init_state(actor, critic)
+        a._next_seed = lambda: 12345
+        gd = torch.Generator(device=d)
+        t_s, _, _, mm = a.train_step(t_s, gt.state_from_numpy(st, device=d), None, gd)
+        small[d] = (t_s.params(), float(mm["v_loss"]))
+    for i, (x, y) in enumerate(zip(small["cuda"][0], small["cpu"][0])):
+        check_close(x.detach().cpu(), y.detach(), 5e-5, 5e-3, f"MAPPO N=3 card vs CPU param {i}")
+    require(abs(small["cuda"][1] - small["cpu"][1]) <= 1e-3 * abs(small["cpu"][1]),
+            f"MAPPO N=3 card vs CPU v_loss {small['cuda'][1]} vs {small['cpu'][1]}")
+    print(f"MAPPO N=3 B=64 T=8 one iteration: card and CPU plain agree (params rtol 5e-3 atol 5e-5, "
+          f"v_loss {small['cuda'][1]:.6f} vs {small['cpu'][1]:.6f})")
+
+    # learns: the loose band of tests/test_fused_collect.py over 12 iterations
+    learn = mappo_n3(dev, NUM_ENVS, fused_update=True)
+    gl = torch.Generator(device=dev)
+    gl.manual_seed(1)
+    ts_l, es_l, obs_l = learn.init(gl)
+    rewards = []
+    for _ in range(12):
+        ts_l, es_l, obs_l, m_l = learn.train_step(ts_l, es_l, obs_l, gl)
+        rewards.append(float(m_l["mean_step_reward"]))
+    require(all(np.isfinite(rewards)) and rewards[-1] > rewards[0] - 2.0,
+            f"MAPPO N=3: mean_step_reward left the band: {rewards}")
+    print(f"MAPPO N=3 12 iterations: mean_step_reward {rewards[0]:.4f} -> {rewards[-1]:.4f}")
+    return dict(counts=counts, rate=rate)
+
+
+def phase_mappo_n243(dev, kmods):
+    """The MAPPO N=243 structured path at B=1024: K1 and K2 in every env
+    step, no observation built, no K5 or K9."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
+
+    B = 1024
+    env = gt.make_env("formation_hd_env", num_agents=NUM_AGENTS)
+    algo = MAPPO(env, MAPPOConfig(), num_envs=B, device=dev)
+    require(algo.structured_obs and not algo.fused_collect,
+            "MAPPO N=243: the auto gate did not choose the structured path")
+    T = algo.cfg.rollout_len
+    observed = [0]
+    observe = env.scenario.observe
+
+    def counting_observe(state):
+        observed[0] += 1
+        return observe(state)
+
+    env.scenario.observe = counting_observe
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ts, es, obs = algo.init(g)
+    torch.cuda.reset_peak_memory_stats()
+    ts, es, obs, _, _ = train_iterations(algo, ts, es, obs, g, 1, "MAPPO N=243 warm-up")
+    reset_counts(*kmods)
+    observed[0] = 0
+    ts, es, obs, m, walls = train_iterations(algo, ts, es, obs, g, TIMED_ITERS, "MAPPO N=243")
+    counts = launch_counts(kmods)
+    print(f"MAPPO N=243 B={B} structured: launches in {TIMED_ITERS} iterations {counts}, "
+          f"observe calls {observed[0]}")
+    for name in ("pairforce_sym", "reward_sym"):
+        require(counts[name] == TIMED_ITERS * T, f"MAPPO N=243: {name} not once an env step")
+    for name in ("fused_collect", "fused_ppo_grad", "fused_step", "fused_rollout"):
+        require(counts[name] == 0, f"MAPPO N=243: {name} launched")
+    require(observed[0] == 0, "MAPPO N=243: the structured collection built observations")
+    wall = statistics.median(walls)
+    rate = T * B / wall
+    print(f"training env-steps/s MAPPO N=243 B={B} structured: {rate:.1f}, agent-steps/s "
+          f"{rate * NUM_AGENTS:.1f} (iteration walls {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms)")
+    split, ts, es, obs = split_iteration(algo, ts, es, obs, g)
+    print(f"MAPPO N=243 structured iteration: {fmt_split(split)}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; mean_step_reward "
+          f"{m['mean_step_reward']:.4f}")
+    env.scenario.observe = observe
+
+    bf = MAPPO(env, MAPPOConfig(structured_bf16=True), num_envs=B, device=dev)
+    ts, es, obs, m16, walls16 = train_iterations(bf, ts, es, obs, g, 1, "MAPPO N=243 bf16")
+    print(f"MAPPO N=243 B={B} structured_bf16: one iteration {walls16[0] * 1e3:.3f} ms, finite metrics "
+          f"(v_loss {m16['v_loss']:.4f})")
+    return dict(counts=counts, rate=rate)
+
+
 def main() -> int:
     # -- 1. environment --------------------------------------------------
     phase("environment")
@@ -171,8 +482,10 @@ def main() -> int:
     from gym_formation_tpu_torch.ops.kernels import fused_step as k3
     from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
     from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
 
-    kmods = (k1, k2, k3, k4)
+    kmods = (k1, k2, k3, k4, k5, k9)
     dev = torch.device("cuda")
 
     # -- 2. build --------------------------------------------------------
@@ -457,6 +770,22 @@ def main() -> int:
                                    plain_reps=1)
     print(f"K4 n={n3} B={NUM_ENVS} length {N3_LENGTH}: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
 
+    # -- 10. K5 ------------------------------------------------------------
+    phase("K5 fused_collect vs plain")
+    k5_res = phase_k5(dev, rng)
+
+    # -- 11. K9 ------------------------------------------------------------
+    phase("K9 fused_ppo_grad vs plain")
+    k9_res = phase_k9(dev)
+
+    # -- 12. MAPPO N=3 path ------------------------------------------------
+    phase("MAPPO N=3 path")
+    n3_train = phase_mappo_n3(dev, kmods)
+
+    # -- 13. MAPPO N=243 structured path -----------------------------------
+    phase("MAPPO N=243 structured path")
+    phase_mappo_n243(dev, kmods)
+
     src = "gym_formation_tpu_torch/csrc/"
     pallas = "gym_formation_tpu/ops/pallas/"
     kernels = [
@@ -472,6 +801,14 @@ def main() -> int:
         dict(name="fused_rollout", route="cuda", source=src + "fused_rollout.cu",
              replaces=pallas + "fused_rollout.py:331",
              launches=n3_launches["fused_rollout"], max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms),
+        dict(name="fused_collect", route="cuda", source=src + "fused_collect.cu",
+             replaces=pallas + "fused_collect.py:345",
+             launches=n3_train["counts"]["fused_collect"], max_abs_err=k5_res["err"], ms=k5_res["ms"],
+             plain_ms=k5_res["plain_ms"]),
+        dict(name="fused_ppo_grad", route="cuda", source=src + "fused_ppo_grad.cu",
+             replaces=pallas + "fused_ppo_grad.py:248",
+             launches=n3_train["counts"]["fused_ppo_grad"], max_abs_err=k9_res["err"], ms=k9_res["ms"],
+             plain_ms=k9_res["plain_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

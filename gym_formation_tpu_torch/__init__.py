@@ -11,8 +11,11 @@ Ported so far: the ``formation_hd_env`` step path under the scripted
 hierarchical controller, with the pair-force (K1) and reward-statistics (K2)
 kernels; the fused rollout :func:`rollout_statepolicy_fused` on the fused
 step kernel (K3, with the BFS + ezpolicy expansion in-kernel); and the
-whole-rollout kernel (K4, ``ops.kernels.fused_rollout``).  Importing this
-package makes no CUDA call and never imports JAX.
+whole-rollout kernel (K4, ``ops.kernels.fused_rollout``); and the MAPPO
+learner (:mod:`.algos`) with its fused collection (K5) and fused PPO
+gradient (K9) kernels, the obs-free structured first layers for N >= 32,
+and the ``python -m gym_formation_tpu_torch.train`` entry point.  Importing
+this package makes no CUDA call and never imports JAX.
 """
 
 from . import spaces

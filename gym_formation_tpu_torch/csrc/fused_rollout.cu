@@ -38,15 +38,6 @@
 
 #include "common.cuh"
 
-__device__ __forceinline__ unsigned hash_u32(unsigned x) {
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x;
-}
-
 // Uniform [-1, 1) keyed by (seed, it, row, lane), as the JAX _uniform_pm1.
 __device__ __forceinline__ float uniform_pm1(unsigned seed, unsigned it, unsigned row,
                                              unsigned lane) {
@@ -54,14 +45,6 @@ __device__ __forceinline__ float uniform_pm1(unsigned seed, unsigned it, unsigne
   const unsigned bits = hash_u32(ctr + lane);
   const float u01 = rn_mul((float)(int)(bits >> 8), 1.0f / 16777216.0f);
   return rn_sub(rn_mul(u01, 2.0f), 1.0f);
-}
-
-template <int n>
-__device__ __forceinline__ float mean_n(const float (&v)[n]) {
-  float s = v[0];
-#pragma unroll
-  for (int a = 1; a < n; ++a) s = rn_add(s, v[a]);
-  return rn_div(s, (float)n);
 }
 
 template <int n>

@@ -32,6 +32,16 @@ from .models.bfs import num_layers
 from .ops.kernels import fused_step, reward_sym
 
 
+BENCHMARK_KEYS = ("reward", "collisions", "min_dists", "occupied_landmarks")
+
+
+def benchmark_means(info: dict) -> dict:
+    """Scalar means of the benchmark quartet in a step's ``info`` (present
+    when the env was built with ``benchmark=True``) under ``bench_*`` keys;
+    empty otherwise, so collection loops can thread it unconditionally."""
+    return {f"bench_{k}": info[k].mean() for k in BENCHMARK_KEYS if k in info}
+
+
 def _select(flag: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
     """Per env: ``a`` where ``flag`` [B] is True, else ``b``."""
     pick = lambda x, y: torch.where(flag.reshape((-1,) + (1,) * (x.dim() - 1)), x, y)

@@ -44,6 +44,16 @@ SIGNATURES = {
     # ap, av, ishape, ivel, t (in), ap, av, ishape, ivel, t, reward (out), B,
     # n, T, ep_len, seed, sens, dmin, thresh2, cf, margin, invk, keep, dt, stream
     "fused_rollout_launch": (_P,) * 11 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
+    # ap, av, ishape, ivel, t (in), 7 actor + 6 critic operands, ap, av,
+    # ishape, ivel, t (out), obs, act, logp, value, reward, done, B, n, T,
+    # ep_len, seed, sens, dmin, thresh2, cf, margin, invk, keep, dt, stream
+    "fused_collect_launch": (_P,) * 29 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
+    # obs, act, lpo, adv, vold, tgt, 7 actor + 6 critic operands, part_a,
+    # part_c, out_a, out_c, Ma, M, DO, DC, A, Ga, Gc, clip_eps, huber_delta,
+    # value_coef, inv_ma, inv_mc, stream
+    "fused_ppo_grad_launch": (_P,) * 23 + (_I,) * 7 + (_F,) * 5 + (_P,),
+    # DO, DC, A -> dynamic shared memory bytes of K9's first kernel
+    "fused_ppo_grad_smem_bytes": (_I,) * 3,
 }
 
 _lib = None

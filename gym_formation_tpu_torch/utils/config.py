@@ -1,0 +1,51 @@
+"""Config dataclasses from a YAML file and ``KEY=VALUE`` overrides.
+
+Counterpart of ``gym_formation_tpu/utils/config.py``: every learner config is
+a frozen dataclass; :func:`load_config` merges a YAML file (optional, needs
+PyYAML) and ``key=value`` strings onto its defaults, rejecting unknown keys.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Mapping, Optional, Sequence, Type, TypeVar
+
+T = TypeVar("T")
+
+
+def from_dict(cls: Type[T], d: Mapping[str, Any]) -> T:
+    """Build a dataclass from a mapping, rejecting unknown keys (lists
+    become tuples)."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(d) - fields
+    if unknown:
+        raise ValueError(f"unknown config keys for {cls.__name__}: {sorted(unknown)}; "
+                         f"valid: {sorted(fields)}")
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in d.items()})
+
+
+def _parse_scalar(s: str) -> Any:
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            pass
+    if s.lower() in ("true", "false"):
+        return s.lower() == "true"
+    return s
+
+
+def load_config(cls: Type[T], yaml_path: Optional[str] = None, overrides: Sequence[str] = ()) -> T:
+    """Defaults ← YAML file ← ``key=value`` override strings."""
+    d: Dict[str, Any] = {}
+    if yaml_path:
+        import yaml
+
+        with open(yaml_path) as f:
+            d.update(yaml.safe_load(f) or {})
+    for ov in overrides:
+        k, sep, v = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override must be key=value: {ov!r}")
+        d[k.strip()] = _parse_scalar(v.strip())
+    return from_dict(cls, d)

@@ -216,3 +216,149 @@ def test_fused_rollout_on_card_launches_k3_and_k2(dev, stats):
     ref_fin, ref = gt.rollout_statepolicy(env, pol, state, g, T)
     torch.testing.assert_close(rew, ref.sum(-1), atol=5e-3, rtol=1e-4)
     assert torch.equal(fin.t, ref_fin.t) and rew.device.type == "cuda"
+
+
+# -- K5, K9 and the MAPPO train step ------------------------------------------
+
+def _networks(n, dev, seed=0):
+    from gym_formation_tpu_torch.models.networks import GaussianActor, ValueCritic
+
+    g = torch.Generator()
+    g.manual_seed(seed)
+    actor = GaussianActor(6 * n, 2, generator=g)
+    critic = ValueCritic(6 * n * n, generator=g)
+    with torch.no_grad():
+        actor.head.weight.mul_(50.0)
+        actor.log_std.fill_(-0.5)
+    return actor.to(dev), critic.to(dev)
+
+
+@pytest.mark.parametrize("squeeze", [1.0, 0.02])
+@pytest.mark.parametrize("B", [7, 37])
+@pytest.mark.parametrize("n", [3, 4, 9])
+def test_k5_matches_plain_across_resets(dev, n, B, squeeze):
+    """Trajectory and state within atol 1e-4 / 1e-5 (the kernel rounds as
+    the plain version, so in practice bit for bit); done and the episode
+    counters exact across resets; the squeezed fixture has collisions."""
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+
+    soa = _soa(dev, n, B, 10, 3 * n + B)
+    soa = soa._replace(ap=(soa.ap * squeeze).contiguous())
+    actor, critic = _networks(n, dev, n)
+    aops, cops = k5.actor_planes(actor), k5.critic_planes(critic)
+    kw = dict(length=25, ep_len=10, n=n)
+    before = k5.launches
+    s_k, tr_k = k5.fused_collect_hd(soa, aops, cops, 4, **kw)
+    assert k5.launches == before + 1
+    s_p, tr_p = k5.fused_collect_hd_plain(soa, aops, cops, 4, **kw)
+    for name in ("ap", "av", "ishape", "ivel"):
+        torch.testing.assert_close(getattr(s_k, name), getattr(s_p, name), atol=1e-5, rtol=0)
+    for name in ("obs", "action", "logp", "value", "reward"):
+        torch.testing.assert_close(tr_k[name], tr_p[name], atol=1e-4, rtol=1e-5)
+    assert torch.equal(s_k.t, s_p.t) and torch.equal(tr_k["done"], tr_p["done"])
+    assert bool(tr_k["done"].any(0).all())
+    if squeeze < 1.0:
+        rel = tr_k["obs"][0, :, :, 2:4]  # agent i to its first neighbour, before the first step
+        assert bool((rel.norm(dim=-1) < 0.03).any())
+
+
+def _k9_data(dev, num_envs, T=8):
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
+
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3),
+                 MAPPOConfig(rollout_len=T, fused_update=True), num_envs=num_envs, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    ts, es, obs = algo.init(g)
+    with torch.no_grad():
+        es, obs, traj, _, last = algo._collect_fused(ts, es, obs, g)
+    ts, data = algo._prepare(ts, traj, last)
+    return algo, ts, data
+
+
+@pytest.mark.parametrize("num_envs", [37, 512])
+def test_k9_matches_plain_and_autograd(dev, num_envs):
+    """Every gradient leaf against the plain version and the learner's
+    epoch gradient against autograd of the loss (rtol 2e-3, atol 2e-6, the
+    tolerance of tests/test_fused_ppo_grad.py); M = 296 leaves a ragged
+    last chunk.  Two runs agree bit for bit."""
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    algo, ts, data = _k9_data(dev, num_envs)
+    f = lambda t: t.detach().float().contiguous()
+    (a1, a2), (c1, c2) = ts.actor.mlp.layers, ts.critic.mlp.layers
+    aops = (f(a1.weight.T), f(a1.bias), f(a2.weight.T), f(a2.bias), f(ts.actor.head.weight.T),
+            f(ts.actor.head.bias), f(ts.actor.bounded_log_std()))
+    cops = (f(c1.weight.T), f(c1.bias), f(c2.weight.T), f(c2.bias), f(ts.critic.head.weight.T),
+            f(ts.critic.head.bias))
+    sub = {k: data[k] for k in ("obs", "action", "logp", "adv", "value", "target")}
+    kw = dict(n_agents=3, act_dim=2, clip_eps=0.2, huber_delta=10.0, value_coef=1.0)
+    got = k9.fused_ppo_grads(sub, aops, cops, **kw)
+    want = k9.fused_ppo_grads_plain(sub, aops, cops, **kw)
+    for x, y in zip(got[0] + got[1], want[0] + want[1]):
+        torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-6)
+    M = data["obs"].shape[0]
+    per_row = torch.tensor([3 * M, M, 3 * M], dtype=torch.float32, device=dev)
+    torch.testing.assert_close(got[2] / per_row, want[2] / per_row, rtol=2e-3, atol=1e-6)
+    again = k9.fused_ppo_grads(sub, aops, cops, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1], again[0] + again[1]))
+    grads, _ = algo._fused_epoch_grads(ts, data)
+    total, _ = algo._loss(ts, data, ts.value_norm)
+    for x, y in zip(grads, torch.autograd.grad(total, ts.params())):
+        torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-6)
+
+
+def test_fused_train_step_card_matches_cpu(dev):
+    """One MAPPO iteration with K5 and K9 on the card against the CPU's
+    plain versions, from the same networks, state and seed (the slice
+    test's tolerances: parameters rtol 5e-3, atol 5e-5; v_loss rtol 1e-3)."""
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
+
+    rng = np.random.RandomState(4)
+    n, B = 3, 64
+    apos, ish = rng.uniform(-1, 1, (B, n, 2)), rng.uniform(-1, 1, (B, n, 2))
+    ish -= ish.mean(1, keepdims=True)
+    st = dict(pos=np.concatenate([apos, ish + apos.mean(1, keepdims=True)], 1), vel=np.zeros((B, 2 * n, 2)),
+              c=np.zeros((B, n, 2)), ideal_shape=ish, ideal_vel=rng.uniform(-1, 1, (B, 2)),
+              t=rng.randint(0, 5, B).astype(np.int32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        algo = MAPPO(gt.make_env("formation_hd_env", num_agents=n, episode_length=6),
+                     MAPPOConfig(rollout_len=8, ppo_epochs=2, fused_collect=True, fused_update=True),
+                     num_envs=B, device=d)
+        ts = algo.init_state(*_networks(n, d, 5))
+        algo._next_seed = lambda: 77
+        ts, es, obs, m = algo.train_step(ts, gt.state_from_numpy(st, device=d), None, torch.Generator(device=d))
+        out[d.type] = ([p.detach().cpu() for p in ts.params()], float(m["v_loss"]), es.t.cpu())
+    for x, y in zip(out["cuda"][0], out["cpu"][0]):
+        torch.testing.assert_close(x, y, rtol=5e-3, atol=5e-5)
+    assert abs(out["cuda"][1] - out["cpu"][1]) <= 1e-3 * abs(out["cpu"][1])
+    assert torch.equal(out["cuda"][2], out["cpu"][2])
+
+
+def test_k5_k9_wrappers_reject_bad_inputs(dev):
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    actor, critic = _networks(3, dev)
+    aops, cops = k5.actor_planes(actor), k5.critic_planes(critic)
+    soa = _soa(dev, 3, 4, 10, 0)
+    with pytest.raises(ValueError, match="built for n"):
+        k5.fused_collect_hd(_soa(dev, 5, 4, 10, 0), aops, cops, 0, length=2, ep_len=10, n=5)
+    with pytest.raises(ValueError, match="float32"):
+        k5.fused_collect_hd(soa._replace(ap=soa.ap.double()), aops, cops, 0, length=2, ep_len=10, n=3)
+    with pytest.raises(ValueError, match="float32"):
+        k5.fused_collect_hd(soa, (aops[0].double(),) + aops[1:], cops, 0, length=2, ep_len=10, n=3)
+    _, ts, data = _k9_data(dev, 8)
+    sub = {k: data[k] for k in ("obs", "action", "logp", "adv", "value", "target")}
+    f = lambda t: t.detach().contiguous()
+    (a1, a2), (c1, c2) = ts.actor.mlp.layers, ts.critic.mlp.layers
+    aops = [f(a1.weight.T), f(a1.bias), f(a2.weight.T), f(a2.bias), f(ts.actor.head.weight.T),
+            f(ts.actor.head.bias), f(ts.actor.bounded_log_std())]
+    cops = (f(c1.weight.T), f(c1.bias), f(c2.weight.T), f(c2.bias), f(ts.critic.head.weight.T),
+            f(ts.critic.head.bias))
+    kw = dict(n_agents=3, act_dim=2, clip_eps=0.2, huber_delta=10.0, value_coef=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        k9.fused_ppo_grads(sub, [a1.weight.detach()] + aops[1:], cops, **kw)  # [out, in], not [in, out]
+    with pytest.raises(ValueError, match="float32"):
+        k9.fused_ppo_grads(dict(sub, obs=sub["obs"].double()), aops, cops, **kw)

@@ -182,7 +182,8 @@ def test_use_kernel_rule():
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, gym_formation_tpu_torch, gym_formation_tpu_torch.ops._build;"
+        "import sys, gym_formation_tpu_torch, gym_formation_tpu_torch.ops._build,"
+        " gym_formation_tpu_torch.algos, gym_formation_tpu_torch.train;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'gym_formation_tpu')];"
         "assert not bad, bad"
     )
