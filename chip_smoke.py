@@ -54,10 +54,38 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    env-steps/s, agent-steps/s, the split and the peak device memory, and
    one structured_bf16 iteration's time.
 
+14. K6 (dense pair forces) against its plain version: the hd_obs colliding
+   subset at N=243 (E=246: agents of size 0.1, obstacles of size 0.15) at
+   B=512 and 4096, the heterogeneous fixture of tests/test_pallas.py (mass
+   2.5, an immovable block, a non-colliding block), and exact contact and
+   zero distance; atol = rtol = 1e-3.
+15. K7 (row-major reward statistics) against its plain version and against
+   K2 on phase 4's fixtures: Hausdorff atol 1e-5 (1e-6 against K2), counts
+   exact.
+16. K8 (Morton-culled pair forces) against its plain version (1e-3) and K6
+   (atol 2e-4, rtol 1e-4) at E=243 and 246, B=4096, dense and spread; its
+   evaluated tile pairs against the plain box test's.  Prints the culled
+   share, the argsort's and the kernel's time.
+17. hd_obs path: make_vec_env("formation_hd_obs_env", num_envs=4096,
+   num_agents=243) stepped 128 steps (world_length 50, so auto-resets are
+   crossed) under bench.py's linear policy clip(obs @ W, -1, 1).  K6 once a
+   step, K1 never; finite rewards; the obstacles fall; the card against the
+   CPU plain path on a small injected state.  Prints env-steps/s, the peak
+   device memory, one N=27 window, and K6's time beside its plain version's.
+18. Selector paths: the step path of phase 5 for 32 steps each under
+   set_pallas_impl("cull") (K8 once a step, K1 never),
+   set_pallas_impl("dense") (K6 once a step, K1 never) and
+   set_reward_impl("rowmajor") (K7 once a step, K2 never); per-step rewards
+   against the default selectors' from the same states; env-steps/s; K8's
+   and K7's times at the paths' shapes.  The selectors are restored after.
+19. The other scenarios: basic_formation_env (N=3, ezpolicy) and the two
+   partial scenarios (N=27, the linear policy) at B=4096, K1 once a step.
+
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel, each
+with its least possible time on the card (``bound_ms``, see ``bound``); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -286,7 +314,7 @@ def phase_k9(dev):
     print(f"K9 M={M} (actor rows {3 * M}): max abs err {err:.3e} vs plain (rtol 2e-3, atol 2e-6 "
           f"a leaf), deterministic; the epoch gradient matches autograd of the loss")
     print(f"K9 M={M}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, M=M)
 
 
 def train_iterations(algo, ts, es, obs, g, iters, label):
@@ -354,7 +382,8 @@ def phase_mappo_n3(dev, kmods):
     print(f"MAPPO N=3 B={NUM_ENVS} fused: launches in {TIMED_ITERS} iterations {counts}")
     require(counts["fused_collect"] == TIMED_ITERS, "MAPPO N=3: K5 not once an iteration")
     require(counts["fused_ppo_grad"] == TIMED_ITERS * epochs, "MAPPO N=3: K9 not once an epoch")
-    for name in ("pairforce_sym", "reward_sym", "fused_step", "fused_rollout"):
+    for name in ("pairforce_sym", "reward_sym", "fused_step", "fused_rollout", "pairforce", "reward",
+                 "pairforce_cull"):
         require(counts[name] == 0, f"MAPPO N=3: {name} launched")
     wall = statistics.median(walls)
     rate = T * NUM_ENVS / wall
@@ -439,7 +468,8 @@ def phase_mappo_n243(dev, kmods):
           f"observe calls {observed[0]}")
     for name in ("pairforce_sym", "reward_sym"):
         require(counts[name] == TIMED_ITERS * T, f"MAPPO N=243: {name} not once an env step")
-    for name in ("fused_collect", "fused_ppo_grad", "fused_step", "fused_rollout"):
+    for name in ("fused_collect", "fused_ppo_grad", "fused_step", "fused_rollout", "pairforce", "reward",
+                 "pairforce_cull"):
         require(counts[name] == 0, f"MAPPO N=243: {name} launched")
     require(observed[0] == 0, "MAPPO N=243: the structured collection built observations")
     wall = statistics.median(walls)
@@ -457,6 +487,446 @@ def phase_mappo_n243(dev, kmods):
     print(f"MAPPO N=243 B={B} structured_bf16: one iteration {walls16[0] * 1e3:.3f} ms, finite metrics "
           f"(v_loss {m16['v_loss']:.4f})")
     return dict(counts=counts, rate=rate)
+
+
+# -- bounds -------------------------------------------------------------------
+# The least time the card could take for a kernel's work: the larger of its
+# bytes (each input read once, each output written once) over the device
+# memory rate and its FP32 operations over the FP32 rate outside the tensor
+# cores (H100 SXM data sheet, at the full 700 W; the card's own limit is
+# printed beside).  The special-function units (16 results a clock per SM)
+# give a second operations bound for the transcendental-heavy pair kernels,
+# printed beside their times.  Work is counted as the function needs it,
+# not as a kernel happens to do it: what the two directions of a pair share
+# is counted once per unordered pair.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# FP32 operations of one soft-contact pair (a transcendental counted as one
+# operation: a lower bound).  Shared by its two directions: the differences
+# 2, the squared distance 3, the root 1, z 3, |z| 1, exp 1, log1p 1, max and
+# add 2, the times k 1, the coefficient 3.  Each direction: its two
+# multiply-adds 4.  The subsets timed here have equal masses, so the pair
+# factor m_j/m_i is 1 and costs nothing.
+PAIR_SHARED_OPS, PAIR_DIR_OPS = 18, 4
+# special-function results of one unordered pair: rsqrt (it gives 1/d, and
+# d = s·rsqrt(s)), exp, log.  1/k and 1/m are per cfg and per entity.
+PAIR_SFU = 3
+# reward statistics: per (agent, vertex) the squared distance 5 and two
+# minima 2; per unordered agent pair the squared distance 5 and the compare
+# 1; per direction the count 1
+HAUS_OPS, COLL_SHARED_OPS, COLL_DIR_OPS = 7, 6, 1
+STEP_OPS = 20  # integration per agent: damping, force / mass, clamp, update
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the larger of the two least times."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def mlp_flops(dims):
+    """Multiply-add FLOPs of one row through dense layers of widths ``dims``."""
+    return 2 * sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+
+
+def pair_ops(ordered):
+    """FP32 operations of the contact terms of ``ordered`` ordered pairs
+    (both directions of every pair among them)."""
+    return ordered / 2 * PAIR_SHARED_OPS + ordered * PAIR_DIR_OPS
+
+
+def stat_ops(n):
+    """FP32 operations of one env's reward statistics at n agents."""
+    return n * n * HAUS_OPS + n * (n - 1) / 2 * COLL_SHARED_OPS + n * (n - 1) * COLL_DIR_OPS
+
+
+def sfu_ms(ordered):
+    """Special-function bound of the contact terms of ``ordered`` ordered pairs."""
+    return ordered / 2 * PAIR_SFU / SFU_OPS_PER_S * 1e3
+
+
+def near_pairs(pos, cut):
+    """Ordered pairs i != j of each env closer than ``cut``: the pairs whose
+    contact term can be non-zero, the work K8's function needs."""
+    total = 0
+    for chunk in pos.split(256):
+        d = chunk[:, :, None, :] - chunk[:, None, :, :]
+        total += int(((d * d).sum(-1) < cut * cut).sum()) - chunk.shape[0] * chunk.shape[1]
+    return total
+
+
+def take(state, sl):
+    """The envs ``sl`` of a batched state."""
+    import dataclasses
+
+    return type(state)(*(getattr(state, f.name)[sl] for f in dataclasses.fields(state)))
+
+
+def linear_policy(obs_dim, act_dim, dev, seed=7):
+    """bench.py's generic obs consumer: clip(obs @ W, -1, 1), W drawn from a
+    seeded normal and scaled by 1/sqrt(obs_dim)."""
+    W = np.random.RandomState(seed).normal(size=(obs_dim, act_dim)) / np.sqrt(obs_dim)
+    W = torch.as_tensor(W, dtype=torch.float32, device=dev)
+    return lambda obs: torch.clamp(obs @ W, -1.0, 1.0)
+
+
+def obs_steps(venv, policy, state, obs, steps):
+    """``steps`` env steps under an observation policy, keeping only each
+    env's reward sum (no StepOut is kept).  Returns (state, obs, sums)."""
+    rs = torch.zeros(venv.num_envs, device=state.pos.device)
+    for _ in range(steps):
+        state, out = venv.step(state, policy(obs))
+        obs = out.obs
+        rs = rs + out.reward.sum(-1)
+    return state, obs, rs
+
+
+def hd_obs_cfgs(n):
+    """(scenario, colliding-subset cfg, subset indices) of formation_hd_obs_env."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.core.physics import _collide_subset
+
+    scen = gt.make_scenario("formation_hd_obs_env", num_agents=n)
+    _, _, idx, sub = _collide_subset(scen.cfg)
+    return scen, sub, idx
+
+
+def het_cfg():
+    """tests/test_pallas.py:70-77: mass 2.5, an immovable block and a
+    non-colliding block among 256 entities of two sizes."""
+    from gym_formation_tpu_torch.core import make_world_cfg
+
+    cfg = make_world_cfg(100, 156, agent_size=0.05, landmark_size=0.04,
+                         landmark_collide=True, landmark_movable=True)
+    cfg.collide[120:180] = False
+    cfg.movable[200:] = False
+    cfg.mass[50:100] = 2.5
+    return cfg
+
+
+def phase_k6(dev, rng):
+    """K6 against its plain version: the hd_obs colliding subset at N=243
+    (E=246) at B=512 and 4096, the heterogeneous fixture, and exact contact
+    and zero distance."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+
+    _, obs_cfg, _ = hd_obs_cfgs(NUM_AGENTS)
+    E = obs_cfg.n_entities
+    contact = rng.uniform(-1, 1, (5, E, 2)).astype(np.float32)
+    contact[:, 1] = contact[:, 0] + np.float32([0.2, 0.0])  # agents: 0.1 + 0.1
+    contact[:, E - 1] = contact[:, 0] + np.float32([0.0, 0.25])  # agent and obstacle: 0.1 + 0.15
+    contact[:, 3] = contact[:, 4]  # zero distance
+    fixtures = (("hd_obs subset", obs_cfg, rng.uniform(-1, 1, (512, E, 2))),
+                ("hd_obs subset", obs_cfg, rng.uniform(-1, 1, (NUM_ENVS, E, 2))),
+                ("heterogeneous", het_cfg(), rng.uniform(-0.4, 0.4, (512, 256, 2))),
+                ("contact", obs_cfg, contact))
+    err = 0.0
+    for label, cfg, pos in fixtures:
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        got = k6.collision_forces_batched(pos, cfg)
+        want = k6.collision_forces_batched_plain(pos, cfg)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"K6 {label}: non-finite forces")
+        err = max(err, check_close(got, want, 1e-3, 1e-3, f"K6 {label} B={pos.shape[0]}"))
+        print(f"K6 {label} B={pos.shape[0]} E={pos.shape[1]}: max abs err {max_err(got, want):.3e} "
+              f"(atol=rtol=1e-3)")
+    return err
+
+
+def phase_k7(dev, rng):
+    """K7 against its plain version and against K2 on K2's phase-4
+    fixtures."""
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+    from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
+
+    err = 0.0
+    for B, scale in ((512, 1.0), (512, 0.05), (NUM_ENVS, 0.05)):
+        apos = torch.as_tensor(rng.uniform(-1, 1, (B, NUM_AGENTS, 2)) * scale, dtype=torch.float32, device=dev)
+        ishape = torch.as_tensor(rng.uniform(-1, 1, (B, NUM_AGENTS, 2)), dtype=torch.float32, device=dev)
+        ishape = (ishape - ishape.mean(1, keepdim=True)).contiguous()
+        h, nc = k7.hd_reward_stats_batched(apos, ishape, thresh=THRESH)
+        h_p, nc_p = k7.hd_reward_stats_batched_plain(apos, ishape, thresh=THRESH)
+        h2, nc2 = k2.hd_reward_stats_sym(apos, ishape, thresh=THRESH)
+        torch.cuda.synchronize()
+        err = max(err, check_close(h, h_p, 1e-5, 0.0, f"K7 haus B={B} scale={scale}"))
+        require(torch.equal(nc, nc_p), f"K7 counts B={B} scale={scale}: kernel and plain differ")
+        check_close(h, h2, 1e-6, 0.0, f"K7 against K2 haus B={B} scale={scale}")
+        require(torch.equal(nc, nc2), f"K7 against K2 counts B={B} scale={scale} differ")
+        if scale < 1.0:
+            require(int(nc.sum()) > 0, "K7: the squeezed fixture has no collisions")
+        print(f"K7 B={B} N={NUM_AGENTS} scale={scale}: haus max abs err {max_err(h, h_p):.3e} (atol 1e-5), "
+              f"against K2 {max_err(h, h2):.3e} (atol 1e-6); counts equal to plain and K2 "
+              f"({int(nc.sum())} collisions)")
+    return err
+
+
+def k8_report(pos, cfg, label):
+    """K8's culled share and its time split on ``pos``: the wrapper (sort and
+    kernel) and the sort alone are timed; the kernel is their difference.
+    Returns (culled share, wrapper ms, sort ms, kernel ms)."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    B, E = pos.shape[:2]
+    T = -(-E // k8.TILE)
+    tiles = torch.zeros(B, dtype=torch.int32, device=pos.device)
+    k8.collision_forces_culled(pos, cfg, tiles=tiles)
+    culled = 1.0 - int(tiles.sum()) / (B * T * T)
+    sort_ms = time_ms(lambda: k8.morton_order(pos), 20)
+    wrap_ms = time_ms(lambda: k8.collision_forces_culled(pos, cfg), 20)
+    kern_ms = wrap_ms - sort_ms
+    print(f"K8 {label} B={B} E={E}: culled {culled:.4f} of {T * T} tile pairs an env; "
+          f"argsort {sort_ms:.4f} ms, kernel {kern_ms:.4f} ms, wrapper (sort + kernel) {wrap_ms:.4f} ms")
+    return culled, wrap_ms, sort_ms, kern_ms
+
+
+def phase_k8(dev, rng):
+    """K8 against its plain version and against K6 at E=243 (the hd subset)
+    and E=246 (the hd_obs subset), B=4096, on dense and spread positions;
+    its count of evaluated tile pairs against the plain box test's."""
+    from gym_formation_tpu_torch.core import make_world_cfg
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    _, obs_cfg, _ = hd_obs_cfgs(NUM_AGENTS)
+    hd_cfg = make_world_cfg(NUM_AGENTS, 0, agent_size=0.03)
+    err = 0.0
+    for label, cfg in (("hd subset", hd_cfg), ("hd_obs subset", obs_cfg)):
+        for spread in (0.5, 3.0):
+            E = cfg.n_entities
+            pos = torch.as_tensor(rng.uniform(-spread, spread, (NUM_ENVS, E, 2)), dtype=torch.float32, device=dev)
+            tiles = torch.zeros(NUM_ENVS, dtype=torch.int32, device=dev)
+            got = k8.collision_forces_culled(pos, cfg, tiles=tiles)
+            want = k8.collision_forces_culled_plain(pos, cfg)
+            dense = k6.collision_forces_batched(pos, cfg)
+            torch.cuda.synchronize()
+            what = f"K8 {label} spread {spread}"
+            require(bool(torch.isfinite(got).all()), f"{what}: non-finite forces")
+            err = max(err, check_close(got, want, 1e-3, 1e-3, what + " against plain"))
+            check_close(got, dense, 2e-4, 1e-4, what + " against K6")
+            require(torch.equal(tiles.long(), k8.tile_pairs_plain(pos, cfg)),
+                    f"{what}: evaluated tile pairs differ from the plain box test")
+            print(f"{what}: max abs err {max_err(got, want):.3e} against plain (atol=rtol=1e-3), "
+                  f"{max_err(got, dense):.3e} against K6 (atol 2e-4, rtol 1e-4); tile pairs equal the plain test's")
+            k8_report(pos, cfg, f"{label} spread {spread}")
+    return err
+
+
+def hd_obs_small_check(dev):
+    """formation_hd_obs_env on a small injected state (N=27, B=3, T=8,
+    within an episode) under the linear policy: the card (K6) against the
+    CPU's plain path, at the step slice's tolerances."""
+    import gym_formation_tpu_torch as gt
+
+    n, B, T = 27, 3, 8
+    env = gt.make_env("formation_hd_obs_env", num_agents=n)
+    r = np.random.RandomState(3)
+    E = env.cfg.n_entities
+    pos = r.uniform(-0.5, 0.5, (B, E, 2))
+    pos[:, n + 4 :] = pos[:, :3] + 0.1  # obstacles among the agents
+    st = dict(pos=pos, vel=np.zeros((B, E, 2)), c=np.zeros((B, n, 2)), ideal_shape=np.zeros((B, 7, 2)),
+              ideal_vel=np.zeros((B, 2)), t=np.zeros(B, np.int32))
+    out = {}
+    for d in ("cuda", "cpu"):
+        policy = linear_policy(env.scenario.obs_dim, env.act_dim, torch.device(d), seed=3)
+        g = torch.Generator(device=d)
+        s = env.scenario.pre_obs(gt.state_from_numpy(st, device=d))
+        obs = env.scenario.observe(s)
+        rews = []
+        for _ in range(T):
+            s, o = env.step(s, policy(obs), g)
+            obs = o.obs
+            rews.append(o.reward)
+        out[d] = (s.pos.cpu(), s.vel.cpu(), torch.stack(rews).cpu())
+    (cp, cv, cr), (pp, pv, pr) = out["cuda"], out["cpu"]
+    check_close(cp, pp, 2e-4, 1e-4, "hd_obs slice pos")
+    check_close(cv, pv, 2e-3, 1e-4, "hd_obs slice vel")
+    check_close(cr, pr, 1e-4, 1e-5, "hd_obs slice reward")
+    require(float(pr.min()) < -2.0, "hd_obs slice: no collisions")
+    print(f"hd_obs slice N={n} B={B} T={T}: card vs CPU plain agree (pos {max_err(cp, pp):.2e}, "
+          f"vel {max_err(cv, pv):.2e}, reward {max_err(cr, pr):.2e})")
+
+
+def phase_hd_obs(dev, kmods):
+    """The hd_obs path: formation_hd_obs_env at N=243, B=4096 (4 targets, 3
+    obstacles), 128 steps of the linear policy with world_length 50."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+
+    venv = gt.make_vec_env("formation_hd_obs_env", num_envs=NUM_ENVS, num_agents=NUM_AGENTS,
+                           device=dev, seed=0, world_length=50)
+    scen = venv.env.scenario
+    policy = linear_policy(scen.obs_dim, venv.env.act_dim, dev)
+    state, obs = venv.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kmods)
+    t0 = time.perf_counter()
+    state, obs, rsum = obs_steps(venv, policy, state, obs, STEPS)
+    rsum_host = rsum.cpu()
+    first_run_s = time.perf_counter() - t0
+    counts = launch_counts(kmods)
+    print(f"{STEPS} hd_obs steps at N={NUM_AGENTS} B={NUM_ENVS} (obs {scen.obs_dim} wide): "
+          f"{first_run_s:.2f} s, launches {counts}")
+    require(counts["pairforce"] == STEPS, f"hd_obs: K6 launched {counts['pairforce']} times in {STEPS} steps")
+    require(counts["pairforce_sym"] == 0, "hd_obs: K1 launched")
+    require(bool(torch.isfinite(rsum_host).all()), "hd_obs: non-finite reward sums")
+    require(bool(torch.isfinite(state.pos).all()), "hd_obs: non-finite state")
+    t_ep = STEPS % venv.env.world_length
+    require(bool(torch.all(state.t.cpu() == t_ep)), "hd_obs: episode counters after the auto-resets")
+    oy = state.pos[:, NUM_AGENTS + scen.num_targets:, 1]
+    require(float(oy.mean()) < 1.5, f"hd_obs: the obstacles did not fall (mean y {float(oy.mean()):.3f})")
+    print(f"hd_obs reward sum per env: mean {float(rsum_host.mean()):.4f}; obstacles {t_ep} steps into "
+          f"their episode: mean y {float(oy.mean()):.4f} (spawned in [2.0, 2.5]), "
+          f"{float((oy > 2.0).float().mean()):.4f} still above 2.0")
+    hd_obs_small_check(dev)
+
+    def window():
+        nonlocal state, obs
+        state, obs, rs = obs_steps(venv, policy, state, obs, WINDOW)
+        return rs
+
+    rate = throughput(window, NUM_ENVS, WINDOW, f"hd_obs path N={NUM_AGENTS} B={NUM_ENVS}")
+    print(f"hd_obs peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # K6 against its plain version at the path's shapes
+    _, sub, idx = hd_obs_cfgs(NUM_AGENTS)
+    pos = state.pos[:, torch.as_tensor(idx, device=dev)].contiguous()
+    ms, plain_ms = time_pair(lambda: k6.collision_forces_batched(pos, sub),
+                             lambda: k6.collision_forces_batched_plain(pos, sub))
+    pairs = NUM_ENVS * pos.shape[1] * (pos.shape[1] - 1)
+    print(f"K6 B={NUM_ENVS} E={pos.shape[1]}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+          f"special-function bound {sfu_ms(pairs):.4f} ms")
+
+    small = gt.make_vec_env("formation_hd_obs_env", num_envs=NUM_ENVS, num_agents=27, device=dev, seed=1)
+    s27, o27 = small.reset()
+    p27 = linear_policy(small.env.scenario.obs_dim, small.env.act_dim, dev)
+
+    def window27():
+        nonlocal s27, o27
+        s27, o27, rs = obs_steps(small, p27, s27, o27, WINDOW)
+        return rs
+
+    throughput(window27, NUM_ENVS, WINDOW, f"hd_obs path N=27 B={NUM_ENVS}")
+    return dict(counts=counts, rate=rate, ms=ms, plain_ms=plain_ms, E=pos.shape[1])
+
+
+SELECTOR_STEPS = 32
+COMPARE_ENVS, COMPARE_STEPS = 16, 8
+
+
+def phase_selectors(dev, kmods):
+    """The step path (formation_hd_env, N=243, B=4096, BFS + ezpolicy) under
+    set_pallas_impl("cull"), set_pallas_impl("dense") and
+    set_reward_impl("rowmajor").  Each run's per-step rewards are held
+    against the default selectors' from the same states: the first 8 steps
+    of 16 envs, each step started from the default run's state, so that the
+    comparison sees one step's rounding and no trajectory divergence."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.core import set_pallas_impl, set_reward_impl
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+
+    venv = gt.make_vec_env("formation_hd_env", num_envs=NUM_ENVS, num_agents=NUM_AGENTS, device=dev, seed=0)
+    scen = venv.env.scenario
+    policy = lambda s, g: gt.bfs_actions_from_state(gt.ezpolicy_batched, scen, s, 3)
+    start = venv.reset_state()
+    g = torch.Generator(device=dev)
+    ref_states, ref_rews = [take(start, slice(0, COMPARE_ENVS))], []
+    for _ in range(COMPARE_STEPS):
+        st, rew = gt.rollout_statepolicy(venv.env, policy, ref_states[-1], g, 1)
+        ref_states.append(st)
+        ref_rews.append(rew[0])
+    runs = (("cull", lambda: set_pallas_impl("cull"), "pairforce_cull", "pairforce_sym"),
+            ("dense", lambda: set_pallas_impl("dense"), "pairforce", "pairforce_sym"),
+            ("rowmajor", lambda: set_reward_impl("rowmajor"), "reward", "reward_sym"))
+    out = {}
+    try:
+        for label, select, kname, other in runs:
+            set_pallas_impl("auto")
+            set_reward_impl("auto")
+            select()
+            err = 0.0
+            for t in range(COMPARE_STEPS):
+                _, rew = gt.rollout_statepolicy(venv.env, policy, ref_states[t], g, 1)
+                err = max(err, check_close(rew[0], ref_rews[t], 1e-4, 1e-5, f"{label} step {t} reward"))
+            state = start
+            torch.cuda.synchronize()
+            reset_counts(*kmods)
+            state, rs = gt.rollout_statepolicy_rewardsum(venv.env, policy, state, venv.generator, SELECTOR_STEPS)
+            rs_host = rs.cpu()
+            counts = launch_counts(kmods)
+            print(f"{label}: {SELECTOR_STEPS} steps at N={NUM_AGENTS} B={NUM_ENVS}, launches {counts}; "
+                  f"per-step rewards of {COMPARE_ENVS} envs x {COMPARE_STEPS} steps against the default "
+                  f"selectors' max abs err {err:.3e} (atol 1e-4, rtol 1e-5)")
+            require(counts[kname] == SELECTOR_STEPS, f"{label}: {kname} not once a step")
+            require(counts[other] == 0, f"{label}: {other} launched")
+            require(bool(torch.isfinite(rs_host).all()), f"{label}: non-finite reward sums")
+
+            def window():
+                nonlocal state
+                state, r = gt.rollout_statepolicy_rewardsum(venv.env, policy, state, venv.generator, WINDOW)
+                return r
+
+            rate = throughput(window, NUM_ENVS, WINDOW, f"step path {label} N={NUM_AGENTS} B={NUM_ENVS}")
+            out[label] = dict(counts=counts, rate=rate, state=state)
+    finally:
+        set_pallas_impl("auto")
+        set_reward_impl("auto")
+
+    # K8 and K7 against their plain versions at the paths' shapes
+    from gym_formation_tpu_torch.core import make_world_cfg
+
+    cfg = make_world_cfg(NUM_AGENTS, 0, agent_size=0.03)
+    pos = scen.agent_pos(out["cull"]["state"]).contiguous()
+    culled, ms8, sort_ms, kern_ms = k8_report(pos, cfg, "cull path state")
+    _, plain8 = time_pair(lambda: k8.collision_forces_culled(pos, cfg),
+                          lambda: k8.collision_forces_culled_plain(pos, cfg))
+    near = near_pairs(pos, k8.cutoff(cfg))
+    print(f"K8 B={NUM_ENVS} cull path: wrapper {ms8:.4f} ms, plain {plain8:.4f} ms; {near} ordered pairs "
+          f"within the cutoff ({near / (NUM_ENVS * NUM_AGENTS * (NUM_AGENTS - 1)):.4f} of all); "
+          f"special-function bound of those {sfu_ms(near):.4f} ms")
+    k6_ms = time_ms(lambda: k6.collision_forces_batched(pos, cfg), 20)
+    print(f"K6 on the same positions (E={NUM_AGENTS}): {k6_ms:.4f} ms")
+    rpos = scen.agent_pos(out["rowmajor"]["state"]).contiguous()
+    rish = out["rowmajor"]["state"].ideal_shape.contiguous()
+    ms7, plain7 = time_pair(lambda: k7.hd_reward_stats_batched(rpos, rish, thresh=THRESH),
+                            lambda: k7.hd_reward_stats_batched_plain(rpos, rish, thresh=THRESH))
+    print(f"K7 B={NUM_ENVS} rowmajor path: kernel {ms7:.4f} ms, plain {plain7:.4f} ms")
+    return dict(out=out, k8=dict(ms=ms8, plain_ms=plain8, near=near, culled=culled),
+                k7=dict(ms=ms7, plain_ms=plain7))
+
+
+def phase_other_scenarios(dev, kmods):
+    """basic_formation_env (N=3, ezpolicy, bench.py's SUITE row) and the two
+    partial scenarios (N=27, the linear policy) at B=4096: K1 once a step,
+    finite rewards, env-steps/s."""
+    import gym_formation_tpu_torch as gt
+
+    for name, n, pol in (("basic_formation_env", 3, "ezpolicy"),
+                         ("formation_hd_partial_env", 27, "linear"),
+                         ("formation_hd_partial_range_env", 27, "linear")):
+        venv = gt.make_vec_env(name, num_envs=NUM_ENVS, num_agents=n, device=dev, seed=0)
+        policy = (gt.ezpolicy_batched if pol == "ezpolicy" else
+                  linear_policy(venv.env.scenario.obs_dim, venv.env.act_dim, dev))
+        state, obs = venv.reset()
+        torch.cuda.synchronize()
+        reset_counts(*kmods)
+        state, obs, rs = obs_steps(venv, policy, state, obs, WINDOW)
+        rs_host = rs.cpu()
+        counts = launch_counts(kmods)
+        require(counts["pairforce_sym"] == WINDOW, f"{name}: K1 not once a step ({counts})")
+        require(bool(torch.isfinite(rs_host).all()), f"{name}: non-finite reward sums")
+        print(f"{name} N={n} B={NUM_ENVS} {pol}: launches in {WINDOW} steps {counts}, "
+              f"reward sum per env mean {float(rs_host.mean()):.4f}")
+
+        def window():
+            nonlocal state, obs
+            state, obs, r = obs_steps(venv, policy, state, obs, WINDOW)
+            return r
+
+        throughput(window, NUM_ENVS, WINDOW, f"{name} N={n} B={NUM_ENVS}")
 
 
 def main() -> int:
@@ -484,8 +954,11 @@ def main() -> int:
     from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
     from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
     from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
 
-    kmods = (k1, k2, k3, k4, k5, k9)
+    kmods = (k1, k2, k3, k4, k5, k9, k6, k7, k8)
     dev = torch.device("cuda")
 
     # -- 2. build --------------------------------------------------------
@@ -563,6 +1036,8 @@ def main() -> int:
     print(f"{STEPS} steps at N={NUM_AGENTS} B={NUM_ENVS}: {first_run_s:.2f} s, launches {step_launches}")
     for name in ("pairforce_sym", "reward_sym"):
         require(step_launches[name] == STEPS, f"{name}: {step_launches[name]} launches in {STEPS} steps of the step path")
+    for name in ("pairforce", "reward", "pairforce_cull"):
+        require(step_launches[name] == 0, f"the step path launched {name} under the default selectors")
     require(tuple(rsum_host.shape) == (NUM_ENVS,), f"reward sum shape {tuple(rsum_host.shape)}")
     require(bool(torch.isfinite(rsum_host).all()), "non-finite reward sums")
     require(bool(torch.isfinite(state.pos).all()) and bool(torch.isfinite(state.vel).all()),
@@ -607,7 +1082,8 @@ def main() -> int:
     ishape = state.ideal_shape.contiguous()
     k2_ms, k2_plain_ms = time_pair(lambda: k2.hd_reward_stats_sym(pos, ishape, thresh=THRESH),
                                    lambda: k2.hd_reward_stats_sym_plain(pos, ishape, thresh=THRESH))
-    print(f"K1 B={NUM_ENVS}: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms")
+    print(f"K1 B={NUM_ENVS}: kernel {k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms; special-function bound "
+          f"{sfu_ms(NUM_ENVS * NUM_AGENTS * (NUM_AGENTS - 1)):.4f} ms")
     print(f"K2 B={NUM_ENVS}: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.4f} ms")
 
     # -- 6. K3 -----------------------------------------------------------
@@ -786,30 +1262,80 @@ def main() -> int:
     phase("MAPPO N=243 structured path")
     phase_mappo_n243(dev, kmods)
 
+    # -- 14. K6 -----------------------------------------------------------
+    phase("K6 pairforce vs plain")
+    k6_err = phase_k6(dev, rng)
+
+    # -- 15. K7 -----------------------------------------------------------
+    phase("K7 reward (row-major) vs plain and K2")
+    k7_err = phase_k7(dev, rng)
+
+    # -- 16. K8 -----------------------------------------------------------
+    phase("K8 pairforce_cull vs plain and K6")
+    k8_err = phase_k8(dev, rng)
+
+    # -- 17. hd_obs path ----------------------------------------------------
+    phase("hd_obs path")
+    obs_res = phase_hd_obs(dev, kmods)
+
+    # -- 18. selector paths -------------------------------------------------
+    phase("selector paths")
+    sel = phase_selectors(dev, kmods)
+
+    # -- 19. the other scenarios --------------------------------------------
+    phase("other scenarios")
+    phase_other_scenarios(dev, kmods)
+
+    # bounds from this run's shapes (see bound())
+    B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]
+    stat_bytes = 16 * B * N + 4 * B + 4 * B * N
+    soa_bytes = lambda n: 8 * (6 * n + 3)  # SoA state in and out, per env
+    actor = lambda n: mlp_flops((6 * n, 64, 64, 2))
+    critic = lambda n: mlp_flops((6 * n * n, 64, 64, 1))
+    env_step_ops = lambda n: pair_ops(n * (n - 1)) + stat_ops(n) + n * STEP_OPS
+    M = k9_res["M"]
+    bounds = {
+        "pairforce_sym": bound(16 * B * N, B * pair_ops(N * (N - 1))),
+        "reward_sym": bound(stat_bytes, B * stat_ops(N)),
+        "fused_step": bound(44 * B * N + 12 * B, B * env_step_ops(N)),
+        "fused_rollout": bound(B * (soa_bytes(n3) + 4), B * N3_LENGTH * env_step_ops(n3)),
+        "fused_collect": bound(B * (soa_bytes(3) + 4 * 25 * (6 * 3 * 3 + 3 * 3 + 3)),
+                               B * 25 * (3 * actor(3) + critic(3) + env_step_ops(3))),
+        # forward and the weight gradients: twice the forward, a lower bound
+        "fused_ppo_grad": bound(4 * M * (6 * 3 * 3 + 3 * 3 + 3), 2 * M * (3 * actor(3) + critic(3))),
+        "pairforce": bound(16 * B * E6 + 16 * E6, B * pair_ops(E6 * (E6 - 1))),
+        "reward": bound(stat_bytes, B * stat_ops(N)),
+        "pairforce_cull": bound(16 * B * N + 16 * N, pair_ops(sel["k8"]["near"])),
+    }
+    sel_out = sel["out"]
     src = "gym_formation_tpu_torch/csrc/"
     pallas = "gym_formation_tpu/ops/pallas/"
+    rows = (
+        ("pairforce_sym", "pairforce_sym.py:264", step_launches["pairforce_sym"], k1_err, k1_ms, k1_plain_ms),
+        ("reward_sym", "reward_sym.py:183", step_launches["reward_sym"], k2_err, k2_ms, k2_plain_ms),
+        ("fused_step", "fused_step.py:314", fused_launches["fused_step"], k3_err, k3_ms, k3_plain_ms),
+        ("fused_rollout", "fused_rollout.py:331", n3_launches["fused_rollout"], k4_err, k4_ms, k4_plain_ms),
+        ("fused_collect", "fused_collect.py:345", n3_train["counts"]["fused_collect"], k5_res["err"],
+         k5_res["ms"], k5_res["plain_ms"]),
+        ("fused_ppo_grad", "fused_ppo_grad.py:248", n3_train["counts"]["fused_ppo_grad"], k9_res["err"],
+         k9_res["ms"], k9_res["plain_ms"]),
+        ("pairforce", "pairforce.py:108", obs_res["counts"]["pairforce"], k6_err, obs_res["ms"],
+         obs_res["plain_ms"]),
+        ("reward", "reward.py:136", sel_out["rowmajor"]["counts"]["reward"], k7_err, sel["k7"]["ms"],
+         sel["k7"]["plain_ms"]),
+        ("pairforce_cull", "pairforce_cull.py:209", sel_out["cull"]["counts"]["pairforce_cull"], k8_err,
+         sel["k8"]["ms"], sel["k8"]["plain_ms"]),
+    )
+    # no single PyTorch call computes any of these functions (torch.cdist
+    # gives only the distances of K2 and K7), so library_ms is null
     kernels = [
-        dict(name="pairforce_sym", route="cuda", source=src + "pairforce_sym.cu",
-             replaces=pallas + "pairforce_sym.py:264",
-             launches=step_launches["pairforce_sym"], max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain_ms),
-        dict(name="reward_sym", route="cuda", source=src + "reward_sym.cu",
-             replaces=pallas + "reward_sym.py:183",
-             launches=step_launches["reward_sym"], max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms),
-        dict(name="fused_step", route="cuda", source=src + "fused_step.cu",
-             replaces=pallas + "fused_step.py:314",
-             launches=fused_launches["fused_step"], max_abs_err=k3_err, ms=k3_ms, plain_ms=k3_plain_ms),
-        dict(name="fused_rollout", route="cuda", source=src + "fused_rollout.cu",
-             replaces=pallas + "fused_rollout.py:331",
-             launches=n3_launches["fused_rollout"], max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms),
-        dict(name="fused_collect", route="cuda", source=src + "fused_collect.cu",
-             replaces=pallas + "fused_collect.py:345",
-             launches=n3_train["counts"]["fused_collect"], max_abs_err=k5_res["err"], ms=k5_res["ms"],
-             plain_ms=k5_res["plain_ms"]),
-        dict(name="fused_ppo_grad", route="cuda", source=src + "fused_ppo_grad.cu",
-             replaces=pallas + "fused_ppo_grad.py:248",
-             launches=n3_train["counts"]["fused_ppo_grad"], max_abs_err=k9_res["err"], ms=k9_res["ms"],
-             plain_ms=k9_res["plain_ms"]),
+        dict(name=name, route="cuda", source=src + name + ".cu", replaces=pallas + where,
+             launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+             bound_ms=bounds[name][0], bound_by=bounds[name][1], library_ms=None)
+        for name, where, launches, err, ms, plain_ms in rows
     ]
+    for k in kernels:
+        require(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

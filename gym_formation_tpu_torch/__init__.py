@@ -7,15 +7,22 @@ JAX package wrote in Pallas for the TPU becomes a hand-written CUDA kernel
 (``csrc/``, built at first use by :mod:`.ops._build`); on a CPU tensor each
 kernel wrapper runs its plain PyTorch version instead.
 
-Ported so far: the ``formation_hd_env`` step path under the scripted
-hierarchical controller, with the pair-force (K1) and reward-statistics (K2)
-kernels; the fused rollout :func:`rollout_statepolicy_fused` on the fused
-step kernel (K3, with the BFS + ezpolicy expansion in-kernel); and the
-whole-rollout kernel (K4, ``ops.kernels.fused_rollout``); and the MAPPO
-learner (:mod:`.algos`) with its fused collection (K5) and fused PPO
-gradient (K9) kernels, the obs-free structured first layers for N >= 32,
-and the ``python -m gym_formation_tpu_torch.train`` entry point.  Importing
-this package makes no CUDA call and never imports JAX.
+Ported: the five scenarios of the JAX package; the step path under the
+scripted hierarchical controller, with the pair-force kernels K1 (uniform
+subsets), K6 (dense, any subset) and K8 (Morton-culled), chosen by
+:func:`~.core.set_pallas_impl`, and the reward-statistics kernels K2 and K7,
+chosen by :func:`~.core.set_reward_impl`; the fused rollout
+:func:`rollout_statepolicy_fused` on the fused step kernel (K3, with the
+BFS + ezpolicy expansion in-kernel); the whole-rollout kernel (K4,
+``ops.kernels.fused_rollout``); and the MAPPO learner (:mod:`.algos`) with
+its fused collection (K5) and fused PPO gradient (K9) kernels, the obs-free
+structured first layers for N >= 32, and the ``python -m
+gym_formation_tpu_torch.train`` entry point.
+
+Entry points that place tensors (:func:`make_vec_env`,
+:class:`VecFormationEnv`, :class:`~.algos.MAPPO`) run on the card unless
+given ``device="cpu"``, and raise without one.  Importing this package
+makes no CUDA call and never imports JAX.
 """
 
 from . import spaces
@@ -61,12 +68,14 @@ def make_vec_env(
     num_envs: int = 4096,
     benchmark: bool = False,
     num_agents: int = 3,
-    device="cpu",
+    device="cuda",
     seed: int = 0,
     **scenario_kwargs,
 ) -> VecFormationEnv:
     """Build ``num_envs`` envs on ``device`` with a generator seeded by
-    ``seed`` (the JAX package's ``sharding`` argument becomes ``device``)."""
+    ``seed`` (the JAX package's ``sharding`` argument becomes ``device``).
+    The card is the default; without one this raises unless
+    ``device="cpu"`` is given."""
     env = make_env(
         scenario_name, benchmark=benchmark, num_agents=num_agents, **scenario_kwargs
     )

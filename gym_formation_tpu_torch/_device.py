@@ -23,6 +23,16 @@ import torch
 DTYPE = torch.float32
 
 
+def resolve(device) -> torch.device:
+    """The device an entry point runs on.  Entry points default to the card
+    (``"cuda"``) and never move to the CPU on their own: without a CUDA
+    device this raises, naming ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device: pass device="cpu" to run on the CPU')
+    return dev
+
+
 def use_kernel(t: torch.Tensor) -> bool:
     """True for a CUDA tensor (take the kernel), False for a CPU tensor
     (take the plain version); raises for any other device."""

@@ -38,7 +38,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import spaces
+from .. import _device, spaces
 from ..env import FormationEnv, benchmark_means
 from ..models.networks import (
     GaussianActor,
@@ -147,10 +147,11 @@ def huber(x: torch.Tensor, delta: float) -> torch.Tensor:
 
 class MAPPO:
     """Shared-policy MAPPO over a batch of ``num_envs`` :class:`FormationEnv`
-    envs on ``device``, with parameters in ``dtype``."""
+    envs on ``device`` (the card unless ``device="cpu"`` is given), with
+    parameters in ``dtype``."""
 
     def __init__(self, env: FormationEnv, cfg: MAPPOConfig = MAPPOConfig(), num_envs: int = 128,
-                 device="cpu", dtype: torch.dtype = torch.float32):
+                 device="cuda", dtype: torch.dtype = torch.float32):
         if not cfg.share_policy:
             raise NotImplementedError(f"share_policy=False (per-agent networks) {_LEFT_OUT}")
         if not all(isinstance(s, spaces.Box) for s in env.action_space):
@@ -158,7 +159,7 @@ class MAPPO:
         self.env = env
         self.cfg = cfg
         self.num_envs = num_envs
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         self.dtype = dtype
         self.n_agents = env.num_agents
         self.obs_dim = env.scenario.obs_dim

@@ -11,6 +11,8 @@ from .physics import (
     action_forces,
     collision_forces,
     integrate,
+    set_pallas_impl,
+    set_reward_impl,
     wall_forces,
     world_step,
 )
@@ -26,6 +28,8 @@ __all__ = [
     "action_forces",
     "collision_forces",
     "integrate",
+    "set_pallas_impl",
+    "set_reward_impl",
     "wall_forces",
     "world_step",
 ]

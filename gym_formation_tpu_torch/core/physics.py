@@ -5,12 +5,27 @@ takes tensors with an explicit env-batch axis, ``pos``/``vel`` [B, E, P], and
 the static :class:`~gym_formation_tpu_torch.core.types.WorldCfg`.
 
 Collision dispatch (:func:`collision_forces`): the pair computation is
-restricted to the colliding entities (:func:`_collide_subset`).  A subset on
-the uniform envelope (:func:`~..ops.kernels.pairforce_sym.sym_applicable`,
-with ``nan_guard``) goes to kernel K1, which launches on a CUDA tensor and
-runs its plain version on a CPU tensor.  Any other subset runs
-:func:`_collision_forces_plain` on the CPU and raises on a card, where its
-kernel (the dense pair-force kernel K6) is not yet ported.
+restricted to the colliding entities (:func:`_collide_subset`), and the
+subset goes to a pair-force kernel chosen by :func:`set_pallas_impl`, with
+the JAX package's names and semantics:
+
+- ``"auto"`` (default): K1 (``ops/kernels/pairforce_sym.py``) on the
+  uniform envelope (:func:`~..ops.kernels.pairforce_sym.sym_applicable`),
+  else K6, the dense kernel (``ops/kernels/pairforce.py``);
+- ``"dense"``: K6 on any subset;
+- ``"cull"``: K8, Morton-sorted with far tile pairs culled
+  (``ops/kernels/pairforce_cull.py``), on any subset;
+- ``"sym"``: K1, raising ``ValueError`` off its envelope.
+
+Each kernel launches on a CUDA tensor and runs its plain version on a CPU
+tensor.  A world with ``nan_guard=False`` has no kernel in either package:
+it runs the plain path on the CPU and raises on a card.
+
+:func:`set_reward_impl` chooses the formation_hd reward-statistics kernel in
+the same way (``envs/formation_hd.py``).  The JAX package's third selector,
+``set_pallas_mode``, picks between Pallas and XLA by platform and entity
+count; the port launches its kernels on every CUDA tensor at every entity
+count, so it has none.
 """
 
 from __future__ import annotations
@@ -22,8 +37,31 @@ import numpy as np
 import torch
 
 from .. import _device
-from ..ops.kernels import pairforce_sym
+from ..ops.kernels import pairforce, pairforce_cull, pairforce_sym
 from .types import WallCfg, WorldCfg
+
+PALLAS_IMPLS = ("auto", "dense", "cull", "sym")
+REWARD_IMPLS = ("auto", "rowmajor", "sym")
+_PALLAS_IMPL = "auto"
+_REWARD_IMPL = "auto"
+
+
+def set_pallas_impl(impl: str) -> None:
+    """Pair-force kernel selector: ``"auto"``, ``"dense"`` (K6), ``"cull"``
+    (K8) or ``"sym"`` (K1); see the module docstring."""
+    if impl not in PALLAS_IMPLS:
+        raise ValueError(f"pallas impl must be one of {PALLAS_IMPLS}, got {impl!r}")
+    global _PALLAS_IMPL
+    _PALLAS_IMPL = impl
+
+
+def set_reward_impl(impl: str) -> None:
+    """formation_hd reward-statistics selector: ``"auto"`` and ``"sym"``
+    take K2, ``"rowmajor"`` K7; ``"sym"`` raises where agent sizes differ."""
+    if impl not in REWARD_IMPLS:
+        raise ValueError(f"reward impl must be one of {REWARD_IMPLS}, got {impl!r}")
+    global _REWARD_IMPL
+    _REWARD_IMPL = impl
 
 
 def _collide_subset(cfg: WorldCfg):
@@ -69,16 +107,25 @@ def _collide_subset(cfg: WorldCfg):
 
 
 def _subset_forces(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
-    if cfg.nan_guard and pairforce_sym.sym_applicable(cfg):
-        return pairforce_sym.collision_forces_sym(pos.contiguous(), cfg)
-    if _device.use_kernel(pos):
-        raise NotImplementedError(
-            "contact forces for this world (mixed masses or sizes, "
-            "non-movable colliders, or nan_guard=False) need the dense "
-            "pair-force kernel K6 (gym_formation_tpu/ops/pallas/pairforce.py:"
-            "collision_forces_batched), which is not yet ported"
+    if not cfg.nan_guard:
+        if _device.use_kernel(pos):
+            raise NotImplementedError(
+                "contact forces with nan_guard=False have no kernel (the JAX "
+                "package's pair kernels assert nan_guard too): run on the CPU"
+            )
+        return _collision_forces_plain(pos, cfg)
+    pos = pos.contiguous()
+    if _PALLAS_IMPL == "cull":
+        return pairforce_cull.collision_forces_culled(pos, cfg)
+    sym = pairforce_sym.sym_applicable(cfg)
+    if _PALLAS_IMPL == "sym" and not sym:
+        raise ValueError(
+            "set_pallas_impl('sym') forced on a world outside K1's envelope "
+            "(needs uniform mass and size, every entity colliding and movable)"
         )
-    return _collision_forces_plain(pos, cfg)
+    if _PALLAS_IMPL in ("auto", "sym") and sym:
+        return pairforce_sym.collision_forces_sym(pos, cfg)
+    return pairforce.collision_forces_batched(pos, cfg)
 
 
 def collision_forces(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
@@ -99,40 +146,8 @@ def collision_forces(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
     return out
 
 
-def _collision_forces_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
-    """Pairwise soft-contact forces [..., E, P], summed per entity.
-
-    For entities i, j:
-
-        penetration = k * logaddexp(0, -(dist - (size_i + size_j)) / k)
-        F_ij        = contact_force * (pos_i - pos_j) / dist * penetration
-
-    with the mass-ratio split ``force_on_i = Σ_j (m_j/m_i) F_ij`` when both
-    ends are movable, the raw force when only i is, and nothing when i is
-    not.  ``nan_guard`` keeps a zero-distance pair finite.
-    """
-    eps = 1e-12 if cfg.nan_guard else 0.0
-    E = pos.shape[-2]
-    delta = pos[..., :, None, :] - pos[..., None, :, :]  # [..., E, E, P]
-    dist = torch.sqrt((delta * delta).sum(-1))  # [..., E, E]
-    size = _device.const(cfg.size, pos)
-    dist_min = size[:, None] + size[None, :]
-    k = cfg.contact_margin
-    x = -(dist - dist_min) / k
-    penetration = torch.logaddexp(torch.zeros_like(x), x) * k
-    coef = cfg.contact_force * penetration / dist.clamp_min(eps)
-    collide = _device.const(cfg.collide, pos, torch.bool)
-    movable = _device.const(cfg.movable, pos, torch.bool)
-    mass = _device.const(cfg.mass, pos)
-    pair_ok = (
-        collide[:, None]
-        & collide[None, :]
-        & (movable[:, None] | movable[None, :])
-        & ~torch.eye(E, dtype=torch.bool, device=pos.device)
-    )
-    ratio = torch.where(movable[None, :], mass[None, :] / mass[:, None], 1.0)
-    w = torch.where(pair_ok & movable[:, None], coef * ratio, 0.0)
-    return torch.einsum("...ij,...ijp->...ip", w, delta)
+# The plain dense path: K6's plain version, which honours nan_guard.
+_collision_forces_plain = pairforce.collision_forces_batched_plain
 
 
 def _wall_force_single(

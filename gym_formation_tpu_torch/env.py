@@ -191,13 +191,14 @@ class FormationEnv:
 
 
 class VecFormationEnv:
-    """A batch of ``num_envs`` environments on one device, with the
-    ``torch.Generator`` that draws their episodes."""
+    """A batch of ``num_envs`` environments on one device (the card unless
+    ``device="cpu"`` is given), with the ``torch.Generator`` that draws
+    their episodes."""
 
-    def __init__(self, env: FormationEnv, num_envs: int, device="cpu", seed: int = 0):
+    def __init__(self, env: FormationEnv, num_envs: int, device="cuda", seed: int = 0):
         self.env = env
         self.num_envs = num_envs
-        self.device = torch.device(device)
+        self.device = _device.resolve(device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 

@@ -11,9 +11,10 @@ import numpy as np
 import torch
 
 from .. import _device
+from ..core import physics
 from ..core.types import EnvState, make_world_cfg
 from ..ops.distances import center, hausdorff, pairwise_dists
-from ..ops.kernels import reward_sym
+from ..ops.kernels import reward, reward_sym
 from .scenario import Scenario
 
 # Default per-layer triangle shapes for fractal target synthesis.
@@ -128,13 +129,17 @@ class FormationHDScenario(Scenario):
         return haus, ncoll.to(apos.dtype)
 
     def _hd_stats(self, apos: torch.Tensor, ishape: torch.Tensor):
-        """Uniform agent sizes go to kernel K2 (its plain version on the
-        CPU).  Mixed sizes have no kernel in either package and run the
-        plain formulas, as the JAX package does on a TPU."""
+        """Uniform agent sizes go to a kernel (its plain version on the CPU)
+        chosen by :func:`~..core.physics.set_reward_impl`: K2 under
+        ``"auto"`` and ``"sym"``, K7 under ``"rowmajor"``.  Mixed sizes have
+        no kernel in either package and run the plain formulas, as the JAX
+        package does on a TPU; a forced ``"sym"`` raises there."""
+        impl = physics._REWARD_IMPL
         size = self.cfg.size[: self.n]
         if not bool((size == size[0]).all()):
+            if impl == "sym":
+                raise ValueError("set_reward_impl('sym') forced but the agents' sizes differ")
             return self._hd_stats_plain(apos, ishape)
         thresh = float(2.0 * size[0] * self.collision_factor)
-        return reward_sym.hd_reward_stats_sym(
-            apos.contiguous(), ishape.contiguous(), thresh=thresh
-        )
+        kern = reward.hd_reward_stats_batched if impl == "rowmajor" else reward_sym.hd_reward_stats_sym
+        return kern(apos.contiguous(), ishape.contiguous(), thresh=thresh)

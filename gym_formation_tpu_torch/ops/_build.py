@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every ``*.cu`` file under ``gym_formation_tpu_torch/csrc/`` is compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per file, all started
+together, and the objects are linked into one shared library with a plain C
 interface, which is loaded with ``ctypes``.  No PyTorch header is included,
 so a build takes seconds.  The library lands in ``build/kernels/<hash>/`` at
 the repository root, keyed by a hash of the sources and flags, and is built
@@ -21,10 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -35,8 +34,14 @@ _U = ctypes.c_uint
 SIGNATURES = {
     # pos, force, B, E, k, invk, cf, dmin, stream
     "pairforce_sym_launch": (_P, _P, _I, _I, _F, _F, _F, _F, _P),
+    # pos, ent, force, B, E, k, cf, stream
+    "pairforce_launch": (_P, _P, _P, _I, _I, _F, _F, _P),
+    # pos, order, ent, force, tiles, B, E, k, cf, cutoff, stream
+    "pairforce_cull_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     # apos, ishape, mask, haus_fb, ncoll_fb, haus, ncoll, B, N, thresh2, stream
     "reward_sym_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # apos, ishape, haus2, ncoll, B, N, thresh2, stream
+    "reward_launch": (_P, _P, _P, _P, _I, _I, _F, _P),
     # apos, avel, aforce, ishape, ivel, npos, nvel, haus, ncoll, B, N,
     # pos_bstride, vel_bstride, L, post, k, invk, cf, dmin, thresh2, keep,
     # fscale, dt, max_speed, act_scale, stream
@@ -92,20 +97,39 @@ def build() -> Path:
         build_info.setdefault("cached", True)
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(f) for f in sorted(CSRC.glob("*.cu"))]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
-    (out.parent / "ptxas.log").write_text(proc.stderr)
-    build_info.update(
-        cached=False, seconds=time.perf_counter() - t0, ptxas=proc.stderr
-    )
+    tmp = out.with_suffix(f".{tag}")
+    jobs = []
+    try:
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = out.parent / f"{src.stem}.{tag}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((cmd, obj, proc))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:  # wait for every compile, failed or not
+            _, err = proc.communicate()
+            logs.append(err)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *ARCH, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
+    finally:  # a failed build leaves no objects and no half-linked library
+        for _, obj, proc in jobs:
+            proc.kill()  # a no-op once it has exited
+            proc.wait()
+            obj.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
+    ptxas = "".join(logs)
+    (out.parent / "ptxas.log").write_text(ptxas)
+    build_info.update(cached=False, seconds=time.perf_counter() - t0, ptxas=ptxas)
     return out
 
 

@@ -1,0 +1,110 @@
+"""K6: soft-contact forces over any colliding subset (the dense pair kernel).
+
+The CUDA kernel ``csrc/pairforce.cu`` replaces the TPU kernel
+``gym_formation_tpu/ops/pallas/pairforce.py:collision_forces_batched``.
+Its source note says what bounds it on the H100 and how it is laid out.
+
+Unlike K1 it takes per-entity sizes, masses and masks: the subset may mix
+sizes (hd_obs: agents 0.1, obstacles 0.15), masses and immovable or
+non-colliding members.  The TPU kernel reads a static ``[Ep, Ep]`` pair
+table ``pairc = mask · (m_j/m_i | 1)``; the card's kernel keeps four
+per-entity vectors in shared memory and forms each pair's coefficient on
+the fly.
+
+:func:`collision_forces_batched` is the wrapper: a CUDA tensor launches the
+kernel, a CPU tensor takes :func:`collision_forces_batched_plain`, the same
+function in plain PyTorch.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ... import _device
+from ...core.types import WorldCfg
+from .. import _build
+
+launches = 0
+
+# Largest entity count whose positions and four per-entity vectors fit the
+# kernel's default 48 KB of shared memory (E x 6 floats).
+MAX_ENTITIES = 48 * 1024 // 24
+
+
+def _pair_tables(cfg: WorldCfg):
+    """(pairc [E, E], dist_min [E, E]) in float64: the TPU kernel's static
+    tables (``pairforce.py:_static_tables``) without the lane padding."""
+    collide, movable, mass = cfg.collide, cfg.movable, np.asarray(cfg.mass, np.float64)
+    pair_ok = (
+        collide[:, None]
+        & collide[None, :]
+        & (movable[:, None] | movable[None, :])
+        & ~np.eye(cfg.n_entities, dtype=bool)
+    )
+    ratio = np.where(movable[None, :], mass[None, :] / mass[:, None], 1.0)
+    pairc = np.where(pair_ok & movable[:, None], ratio, 0.0)
+    size = np.asarray(cfg.size, np.float64)
+    return pairc, size[:, None] + size[None, :]
+
+
+def collision_forces_batched_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
+    """Plain PyTorch version of K6: pos [B, E, 2] → force [B, E, 2], in the
+    dtype of ``pos``.  Materializes the [B, E, E] pair planes.
+
+    For entities i, j, with ``z = -(d_ij - (s_i + s_j)) / k``:
+
+        F_i = Σ_j pairc_ij · cf · k · softplus(z) / max(d_ij, eps) · (p_i - p_j)
+
+    ``eps`` is 1e-12 under ``nan_guard`` and 0 otherwise (the original's
+    0/0 NaN at zero distance).  This is also the physics' plain path for
+    worlds that no kernel covers (``nan_guard=False``)."""
+    pairc, dist_min = _pair_tables(cfg)
+    pairc, dist_min = _device.const(pairc, pos), _device.const(dist_min, pos)
+    eps = 1e-12 if cfg.nan_guard else 0.0
+    dx = pos[..., :, None, 0] - pos[..., None, :, 0]  # [B, E, E]
+    dy = pos[..., :, None, 1] - pos[..., None, :, 1]
+    dist = torch.sqrt(dx * dx + dy * dy)
+    k = cfg.contact_margin
+    z = -(dist - dist_min) / k
+    # stable softplus: logaddexp(0, z) = max(z, 0) + log1p(exp(-|z|))
+    pen = (z.clamp_min(0.0) + torch.log1p(torch.exp(-z.abs()))) * k
+    # where, not a product, off the pair set: unguarded, the diagonal's 0/0
+    # would otherwise leak in as 0 · NaN
+    coef = torch.where(pairc != 0, pairc * (cfg.contact_force * pen / dist.clamp_min(eps)), 0.0)
+    return torch.stack([(coef * dx).sum(-1), (coef * dy).sum(-1)], dim=-1)
+
+
+def _entity_vectors(cfg: WorldCfg, like: torch.Tensor) -> torch.Tensor:
+    """[4, E] float32 on ``like``'s device: size, mass, movable, collide."""
+    v = np.stack([cfg.size, cfg.mass, cfg.movable, cfg.collide]).astype(np.float32)
+    return _device.const(v, like, torch.float32)
+
+
+def collision_forces_batched(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
+    """Contact forces pos [B, E, 2] → [B, E, 2] for any ``cfg`` with
+    ``nan_guard`` (the TPU kernel asserts it too)."""
+    if not cfg.nan_guard:
+        raise ValueError("K6 needs nan_guard")
+    if not _device.use_kernel(pos):
+        return collision_forces_batched_plain(pos, cfg)
+    if pos.dtype != torch.float32 or pos.dim() != 3 or pos.shape[-1] != 2:
+        raise ValueError(f"K6 takes float32 [B, E, 2], got {pos.dtype} {tuple(pos.shape)}")
+    if not pos.is_contiguous():
+        raise ValueError("K6 takes a contiguous pos tensor")
+    B, E, _ = pos.shape
+    if E != cfg.n_entities:
+        raise ValueError(f"K6: pos has {E} entities, the cfg {cfg.n_entities}")
+    if E > MAX_ENTITIES:
+        raise ValueError(f"K6 holds at most {MAX_ENTITIES} entities per env, got {E}")
+    ent = _entity_vectors(cfg, pos)
+    force = torch.empty_like(pos)
+    rc = _build.lib().pairforce_launch(
+        pos.data_ptr(), ent.data_ptr(), force.data_ptr(), B, E,
+        float(cfg.contact_margin), float(cfg.contact_force),
+        torch.cuda.current_stream(pos.device).cuda_stream,
+    )
+    _build.check(rc, "pairforce")
+    global launches
+    launches += 1
+    return force

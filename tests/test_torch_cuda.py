@@ -362,3 +362,164 @@ def test_k5_k9_wrappers_reject_bad_inputs(dev):
         k9.fused_ppo_grads(sub, [a1.weight.detach()] + aops[1:], cops, **kw)  # [out, in], not [in, out]
     with pytest.raises(ValueError, match="float32"):
         k9.fused_ppo_grads(dict(sub, obs=sub["obs"].double()), aops, cops, **kw)
+
+
+# -- K6, K7, K8 and the hd_obs step ------------------------------------------
+
+def _mixed_cfg(E, seed):
+    """E entities of two sizes, one mass 2.5 block, an immovable block and a
+    non-colliding block (tests/test_pallas.py:65-85 scaled to E)."""
+    cfg = make_world_cfg(E // 2, E - E // 2, agent_size=0.1, landmark_size=0.15,
+                         landmark_collide=True, landmark_movable=True)
+    cfg.mass[: E // 4] = 2.5
+    cfg.movable[E - E // 5:] = False
+    cfg.collide[E // 3 : E // 3 + E // 6] = False
+    return cfg
+
+
+@pytest.mark.parametrize("E,B", [(1, 3), (2, 1), (37, 7), (246, 5), (1500, 2)])
+def test_k6_matches_plain(dev, E, B):
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+
+    cfg = _mixed_cfg(E, E)
+    pos = np.random.RandomState(E).uniform(-0.6, 0.6, (B, E, 2)).astype(np.float32)
+    if E >= 5:  # exact contact and zero distance
+        pos[:, 1] = pos[:, 0] + np.float32([0.2, 0.0])
+        pos[:, 3] = pos[:, 4]
+    pos = torch.as_tensor(pos, device=dev)
+    before = k6.launches
+    got = k6.collision_forces_batched(pos, cfg)
+    assert k6.launches == before + 1
+    want = k6.collision_forces_batched_plain(pos, cfg)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("N,B,scale", [(1, 2, 1.0), (5, 3, 0.05), (100, 9, 0.05), (243, 4, 1.0), (1100, 2, 0.05)])
+def test_k7_matches_plain_and_k2(dev, N, B, scale):
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+
+    rng = np.random.RandomState(N)
+    apos = torch.as_tensor(rng.uniform(-1, 1, (B, N, 2)) * scale, dtype=torch.float32, device=dev)
+    ishape = torch.as_tensor(rng.uniform(-1, 1, (B, N, 2)), dtype=torch.float32, device=dev)
+    h, nc = k7.hd_reward_stats_batched(apos, ishape, thresh=0.03)
+    h_p, nc_p = k7.hd_reward_stats_batched_plain(apos, ishape, thresh=0.03)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=0)
+    assert torch.equal(nc, nc_p)
+    h2, nc2 = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+    torch.testing.assert_close(h, h2, atol=1e-6, rtol=0)
+    assert torch.equal(nc, nc2)
+
+
+# spread: dense (about 250 entities a unit square, the hd_obs density at
+# N=243) and spread out (most tile pairs culled)
+@pytest.mark.parametrize("E,B,spread", [(1, 2, 0.5), (33, 3, 0.5), (33, 3, 3.0), (246, 5, 0.5),
+                                        (246, 5, 3.0), (1500, 2, 1.25), (1500, 2, 7.5)])
+def test_k8_matches_plain_and_k6(dev, E, B, spread):
+    """Against its plain version (1e-3) and K6 (atol 2e-4, rtol 1e-4: the
+    sums' order differs); the count of evaluated tile pairs equals the plain
+    box test's."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    cfg = _mixed_cfg(E, E + 1)
+    pos = torch.as_tensor(np.random.RandomState(E).uniform(-spread, spread, (B, E, 2)),
+                          dtype=torch.float32, device=dev)
+    tiles = torch.zeros(B, dtype=torch.int32, device=dev)
+    got = k8.collision_forces_culled(pos, cfg, tiles=tiles)
+    torch.testing.assert_close(got, k8.collision_forces_culled_plain(pos, cfg), atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(got, k6.collision_forces_batched(pos, cfg), atol=2e-4, rtol=1e-4)
+    assert torch.equal(tiles.long(), k8.tile_pairs_plain(pos, cfg))
+
+
+def test_k8_and_k6_dense_errors_are_rounding(dev):
+    """1500 entities in ±0.5 (about 290 contacts a receiver, terms up to 30
+    that cancel to forces of a few units): K8 and K6 sum each receiver's
+    terms in different orders and differ by more than the atol 2e-4 of the
+    cases above.  Each stays within the first-order f32 error bound of its
+    sum against the f64 plain version, u · Σ_j w_j |t_j| with u = 2⁻²⁴ and
+    w_j = E + 16 + 2(d_j + dmin_j)/k: E − 1 roundings of the running sum,
+    a few of the term's own, and the rounding of d and dmin magnified by
+    1/k in z.  So the two kernels differ by rounding, within twice that."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    E, B = 1500, 2
+    cfg = _mixed_cfg(E, E + 1)
+    pos = torch.as_tensor(np.random.RandomState(E).uniform(-0.5, 0.5, (B, E, 2)),
+                          dtype=torch.float32, device=dev)
+    want = k6.collision_forces_batched_plain(pos.double(), cfg)
+    # Σ_j w_j |t_j| per receiver and axis, in f64, on the plain version's terms
+    pairc, dist_min = (torch.as_tensor(t, device=dev) for t in k6._pair_tables(cfg))
+    p = pos.double()
+    dxy = p[:, :, None, :] - p[:, None, :, :]  # [B, E, E, 2]
+    d = dxy.norm(dim=-1)
+    k = cfg.contact_margin
+    pen = torch.nn.functional.softplus(-(d - dist_min) / k) * k
+    coef = pairc * cfg.contact_force * pen / d.clamp_min(1e-12)
+    w = E + 16 + 2 * (d + dist_min) / k
+    tol = 2.0 ** -24 * (w[..., None] * (coef[..., None] * dxy).abs()).sum(2)
+    got6, got8 = k6.collision_forces_batched(pos, cfg), k8.collision_forces_culled(pos, cfg)
+    plain32 = k6.collision_forces_batched_plain(pos, cfg)
+    errs = {name: (got.double() - want).abs() for name, got in
+            (("K6", got6), ("K8", got8), ("plain f32", plain32))}
+    print("\nE=1500 ±0.5 against the f64 plain version: " + ", ".join(
+        f"{n} max abs err {float(e.max()):.3e} ({float((e / tol.clamp_min(1e-30)).max()):.2e} of the bound)"
+        for n, e in errs.items()) + f"; K8 - K6 {float((got8 - got6).abs().max()):.3e}; "
+        f"bound max {float(tol.max()):.3e}, median {float(tol.median()):.3e}")
+    assert bool((errs["K6"] <= tol).all()) and bool((errs["K8"] <= tol).all())
+    assert bool(((got8 - got6).double().abs() <= 2 * tol).all())
+
+
+def test_k6_k7_k8_wrappers_reject_bad_inputs(dev):
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+
+    cfg = _mixed_cfg(8, 0)
+    pos = torch.zeros(2, 8, 2, device=dev)
+    for fn in (k6.collision_forces_batched, k8.collision_forces_culled):
+        with pytest.raises(ValueError, match="float32"):
+            fn(pos.double(), cfg)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(torch.zeros(2, 16, 2, device=dev)[:, ::2], cfg)
+        with pytest.raises(ValueError, match="entities"):
+            fn(torch.zeros(2, 9, 2, device=dev), cfg)
+    with pytest.raises(ValueError, match="one shape"):
+        k7.hd_reward_stats_batched(pos, torch.zeros(2, 7, 2, device=dev), thresh=0.03)
+
+
+def test_hd_obs_step_on_card_matches_cpu(dev):
+    """formation_hd_obs_env at N=27: K6 once a step and K1 never on the card;
+    T=8 steps of the linear policy agree with the CPU's plain path (the
+    tolerances of tests/test_torch_env.py)."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+
+    n, B, T = 27, 3, 8
+    env = gt.make_env("formation_hd_obs_env", num_agents=n)
+    rng = np.random.RandomState(3)
+    E = env.cfg.n_entities
+    pos = rng.uniform(-0.5, 0.5, (B, E, 2))
+    pos[:, n + 4 :] = pos[:, :3] + 0.1
+    st = dict(pos=pos, vel=np.zeros((B, E, 2)), c=np.zeros((B, n, 2)), ideal_shape=np.zeros((B, 7, 2)),
+              ideal_vel=np.zeros((B, 2)), t=np.zeros(B, np.int32))
+    W = rng.normal(size=(env.scenario.obs_dim, 2)) / np.sqrt(env.scenario.obs_dim)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        g = torch.Generator(device=d)
+        s = env.scenario.pre_obs(gt.state_from_numpy(st, device=d))
+        obs = env.scenario.observe(s)
+        w = torch.as_tensor(W, dtype=torch.float32, device=d)
+        before = (k1.launches, k6.launches)
+        rews = []
+        for _ in range(T):
+            s, o = env.step(s, torch.clamp(obs @ w, -1.0, 1.0), g)
+            obs = o.obs
+            rews.append(o.reward)
+        if d.type == "cuda":
+            assert (k1.launches - before[0], k6.launches - before[1]) == (0, T)
+        out[d.type] = (s.pos.cpu(), s.vel.cpu(), torch.stack(rews).cpu())
+    (cp, cv, cr), (pp, pv, pr) = out["cuda"], out["cpu"]
+    torch.testing.assert_close(cp, pp, atol=2e-4, rtol=1e-4)
+    torch.testing.assert_close(cv, pv, atol=2e-3, rtol=1e-4)
+    torch.testing.assert_close(cr, pr, atol=1e-4, rtol=1e-5)

@@ -127,7 +127,7 @@ def _slice_both(n, B, T, seed):
     jfinal, jrew = jax.jit(jax.vmap(
         lambda s, k: ft.rollout_statepolicy(jenv, jpol, s, k, T)))(
         _jax_state(st), jax.random.split(jax.random.PRNGKey(1), B))
-    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n)
+    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device="cpu")
     tpol = lambda s, g: gt.bfs_actions_from_state(gt.ezpolicy_batched, venv.env.scenario, s, 3)
     tfinal, trew = gt.rollout_statepolicy(venv.env, tpol, gt.state_from_numpy(st), venv.generator, T)
     return jfinal, np.asarray(jrew), tfinal, trew.numpy()
@@ -151,7 +151,7 @@ def test_auto_reset():
     fresh episode: positions in [−1, 1], a centred ideal shape, landmarks
     recentred on the agents; the obs of a done env is the fresh one's."""
     n, B, L = 9, 4, 3
-    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, episode_length=L, seed=7)
+    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, episode_length=L, seed=7, device="cpu")
     state, obs = venv.reset()
     state.t[:2] = 1  # two envs one step ahead: only they end at the last step
     acts = torch.zeros(B, n, 2)
@@ -178,7 +178,7 @@ def test_auto_reset():
 
 def test_shared_reward_and_rewardsum():
     n, B, T = 9, 3, 4
-    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, seed=3)
+    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, seed=3, device="cpu")
     state, _ = venv.reset()
     pol = lambda s, g: gt.bfs_actions_from_state(gt.ezpolicy_batched, venv.env.scenario, s, 3)
     g0 = venv.generator.get_state()
@@ -193,7 +193,7 @@ def test_obs_rollout_matches_state_rollout():
     """rollout (policy on the [B, N, 6N] obs) and rollout_statepolicy give
     the same rewards: the BFS expansion reads the same quantities from both."""
     n, B, T = 9, 2, 3
-    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, seed=4)
+    venv = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, seed=4, device="cpu")
     state, obs = venv.reset()
     g0 = venv.generator.get_state()
     (_, last_obs), outs = gt.rollout(
@@ -226,7 +226,7 @@ def test_benchmark_quartet_matches_jax():
 
 def test_cpu_run_launches_no_kernel():
     before = (pairforce_sym.launches, reward_sym.launches)
-    venv = gt.make_vec_env("formation_hd_env", num_envs=2, num_agents=9)
+    venv = gt.make_vec_env("formation_hd_env", num_envs=2, num_agents=9, device="cpu")
     state, _ = venv.reset()
     venv.step_state(state, venv.sample_actions())
     assert (pairforce_sym.launches, reward_sym.launches) == before
@@ -237,8 +237,16 @@ def test_registry_and_spaces():
     assert len(env.action_space) == 9 and env.action_space[0].shape == (2,)
     assert env.observation_space[0].shape == (54,)
     assert env.share_observation_space[0].shape == (54 * 9,)
-    with pytest.raises(ValueError, match="not yet ported"):
-        gt.make_env("basic_formation_env")
+    # every scenario of the JAX package builds and steps; make_env() with no
+    # arguments builds basic_formation_env, as the JAX package's does
+    for env in (gt.make_env(), gt.make_env("basic_formation_env")):
+        assert env.scenario.name == "basic_formation_env"
+        state, obs = env.reset(torch.Generator(), 2)
+        _, out = env.step(state, env.sample_actions(torch.Generator(), 2), torch.Generator())
+        assert obs.shape == (2, 3, 18) and torch.isfinite(out.reward).all()
+    five = {"basic_formation_env", "formation_hd_env", "formation_hd_obs_env",
+            "formation_hd_partial_env", "formation_hd_partial_range_env"}
+    assert five <= set(ft.SCENARIOS) and five <= set(gt.SCENARIOS)
     with pytest.raises(ValueError, match="Unknown"):
         gt.make_env("no_such_env")
     with pytest.raises(NotImplementedError):

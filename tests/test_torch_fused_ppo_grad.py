@@ -38,7 +38,7 @@ def _setup(M, **cfg):
             "target": value + rng.normal(size=M), "adv": rng.normal(size=M)}
     data = {k: np.array(v, np.float32) for k, v in data.items()}
     talgo = MAPPO(gt.make_env("formation_hd_env", num_agents=3),
-                  MAPPOConfig(rollout_len=8, fused_update=True, **cfg), num_envs=M // 8)
+                  MAPPOConfig(rollout_len=8, fused_update=True, **cfg), num_envs=M // 8, device="cpu")
     return jalgo, ts, params, data, talgo
 
 
@@ -99,7 +99,7 @@ def test_fused_update_matches_autograd_update():
     M = 256
     _, _, params, data, fused = _setup(M, ppo_epochs=3)
     plain = MAPPO(gt.make_env("formation_hd_env", num_agents=3),
-                  MAPPOConfig(rollout_len=8, ppo_epochs=3), num_envs=M // 8)
+                  MAPPOConfig(rollout_len=8, ppo_epochs=3), num_envs=M // 8, device="cpu")
     batch = {k: torch.as_tensor(v) for k, v in data.items()}
     ts_f, m_f = fused._update_fused(fused.state_from_flax(params), batch)
     ts_p, m_p = plain._update(plain.state_from_flax(params), batch)

@@ -107,7 +107,7 @@ def _setup(cfg_kw, M=64, T=8):
     jalgo = JMAPPO(_jenv(), JMAPPOConfig(rollout_len=T, **cfg_kw), num_envs=M // T)
     ts_j, _, _ = jalgo.init(jax.random.PRNGKey(0))
     p64 = _f64(ts_j.params)
-    talgo = MAPPO(_tenv(), MAPPOConfig(rollout_len=T, **cfg_kw), num_envs=M // T, dtype=F64)
+    talgo = MAPPO(_tenv(), MAPPOConfig(rollout_len=T, **cfg_kw), num_envs=M // T, device="cpu", dtype=F64)
     return jalgo, ts_j, p64, talgo
 
 
@@ -163,7 +163,7 @@ def test_gae_valuenorm_prepare_match_jax():
     adv_j, ret_j = jalgo._gae(ts_j, jtraj, jnp.asarray(last))
     ts_j2, data_j = jalgo._prepare(ts_j, jtraj, jnp.asarray(last))
 
-    talgo = MAPPO(_tenv(), MAPPOConfig(rollout_len=T), num_envs=B, dtype=F64)
+    talgo = MAPPO(_tenv(), MAPPOConfig(rollout_len=T), num_envs=B, device="cpu", dtype=F64)
     ts = talgo.state_from_flax(_np(_f64(ts_j.params)))
     ts.value_norm = ValueNorm(*(torch.tensor(v, dtype=F64) for v in (0.3, 1.5, 10.0)))
     ttraj = {k: torch.as_tensor(v) for k, v in traj.items()}
@@ -208,7 +208,7 @@ def test_grad_accum_and_remat_match_whole_batch(lever):
     batch = _torch(_make_batch(jalgo, p64, 64, 4))
     out = {}
     for tag, kw in (("plain", {}), ("lever", lever)):
-        algo = MAPPO(_tenv(), MAPPOConfig(rollout_len=8, **base, **kw), num_envs=8, dtype=F64)
+        algo = MAPPO(_tenv(), MAPPOConfig(rollout_len=8, **base, **kw), num_envs=8, device="cpu", dtype=F64)
         ts = algo.state_from_flax(_np(p64))
         ts, m = algo._update(ts, batch)
         out[tag] = (_params_tree(ts), {k: float(v) for k, v in m.items()})
@@ -236,7 +236,7 @@ def test_fully_fused_train_step_matches_jax():
     seed = int(jax.random.randint(k_seed, (), 0, jnp.iinfo(jnp.int32).max))
     ts_j2, _, _, m_j = jalgo.train_step(ts_j, es_j, obs_j, key)
 
-    talgo = MAPPO(_tenv(ep=25), MAPPOConfig(**cfg), num_envs=32)
+    talgo = MAPPO(_tenv(ep=25), MAPPOConfig(**cfg), num_envs=32, device="cpu")
     assert talgo.fused_collect
     ts = talgo.state_from_flax(params0)
     talgo._next_seed = lambda: seed
@@ -251,7 +251,7 @@ def test_train_step_runs_and_learns():
     """The non-fused port (step-by-step collection, autograd update): finite
     metrics and a reward that has not collapsed after 12 short iterations
     (the loose band of tests/test_fused_collect.py)."""
-    algo = MAPPO(_tenv(ep=25), MAPPOConfig(rollout_len=8, ppo_epochs=2, entropy_coef=0.0), num_envs=32)
+    algo = MAPPO(_tenv(ep=25), MAPPOConfig(rollout_len=8, ppo_epochs=2, entropy_coef=0.0), num_envs=32, device="cpu")
     assert not algo.fused_collect and not algo.structured_obs
     g = torch.Generator()
     g.manual_seed(0)
@@ -268,7 +268,7 @@ def test_train_step_runs_and_learns():
 
 def test_benchmark_means_are_logged():
     env = gt.make_env("formation_hd_env", num_agents=3, benchmark=True)
-    algo = MAPPO(env, MAPPOConfig(rollout_len=3, ppo_epochs=1), num_envs=4)
+    algo = MAPPO(env, MAPPOConfig(rollout_len=3, ppo_epochs=1), num_envs=4, device="cpu")
     g = torch.Generator()
     ts, es, obs = algo.init(g)
     _, _, _, m = algo.train_step(ts, es, obs, g)
@@ -276,30 +276,32 @@ def test_benchmark_means_are_logged():
         assert np.isfinite(float(m[k])), k
 
 
-def test_auto_gates():
+def test_auto_gates(monkeypatch):
     """fused_collect: on for hd at n in K5's instantiations on a CUDA device
     (the JAX gate's batch multiple of 512 dropped), off on the CPU, with
-    benchmark info or without auto-reset.  structured_obs as the JAX gate."""
+    benchmark info or without auto-reset.  structured_obs as the JAX gate.
+    The gates read only the device's type, so a card is simulated."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     hd3 = _tenv()
     assert MAPPO(hd3, MAPPOConfig(), num_envs=4, device="cuda").fused_collect
     assert MAPPO(hd3, MAPPOConfig(), num_envs=100, device="cuda").fused_collect
-    assert not MAPPO(hd3, MAPPOConfig(), num_envs=4).fused_collect
+    assert not MAPPO(hd3, MAPPOConfig(), num_envs=4, device="cpu").fused_collect
     assert not MAPPO(_tenv(5), MAPPOConfig(), num_envs=4, device="cuda").fused_collect
     bench = gt.make_env("formation_hd_env", num_agents=3, benchmark=True)
     assert not MAPPO(bench, MAPPOConfig(), num_envs=4, device="cuda").fused_collect
-    assert MAPPO(hd3, MAPPOConfig(fused_collect=True), num_envs=4).fused_collect  # forced: plain K5
+    assert MAPPO(hd3, MAPPOConfig(fused_collect=True), num_envs=4, device="cpu").fused_collect  # forced: plain K5
     big = _tenv(81)
-    assert MAPPO(big, MAPPOConfig(), num_envs=4).structured_obs
-    assert not MAPPO(_tenv(31), MAPPOConfig(), num_envs=4).structured_obs
-    assert not MAPPO(big, MAPPOConfig(fused_update=True), num_envs=4).structured_obs
+    assert MAPPO(big, MAPPOConfig(), num_envs=4, device="cpu").structured_obs
+    assert not MAPPO(_tenv(31), MAPPOConfig(), num_envs=4, device="cpu").structured_obs
+    assert not MAPPO(big, MAPPOConfig(fused_update=True), num_envs=4, device="cpu").structured_obs
     structured = MAPPO(big, MAPPOConfig(), num_envs=4, device="cuda")
     assert structured.structured_obs and not structured.fused_collect
     with pytest.raises(AssertionError):
-        MAPPO(big, MAPPOConfig(fused_update=True, structured_obs=True), num_envs=4)
+        MAPPO(big, MAPPOConfig(fused_update=True, structured_obs=True), num_envs=4, device="cpu")
     with pytest.raises(AssertionError):
-        MAPPO(hd3, MAPPOConfig(fused_update=True, auto_entropy=True), num_envs=4)
+        MAPPO(hd3, MAPPOConfig(fused_update=True, auto_entropy=True), num_envs=4, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MAPPO(hd3, MAPPOConfig(share_policy=False), num_envs=4)
+        MAPPO(hd3, MAPPOConfig(share_policy=False), num_envs=4, device="cpu")
 
 
 def test_checkpoint_restore_continues_exactly(tmp_path):
@@ -311,7 +313,7 @@ def test_checkpoint_restore_continues_exactly(tmp_path):
     def fresh():
         g = torch.Generator()
         g.manual_seed(3)
-        algo = MAPPO(_tenv(ep=6), cfg, num_envs=8)
+        algo = MAPPO(_tenv(ep=6), cfg, num_envs=8, device="cpu")
         return algo, g, algo.init(g)
 
     algo, g, (ts, es, obs) = fresh()
@@ -320,7 +322,7 @@ def test_checkpoint_restore_continues_exactly(tmp_path):
     save_checkpoint(str(tmp_path), 2, algo.checkpoint_tree(ts, es, obs, g))
     ts, es, obs, m = algo.train_step(ts, es, obs, g)
 
-    algo2 = MAPPO(_tenv(ep=6), cfg, num_envs=8)
+    algo2 = MAPPO(_tenv(ep=6), cfg, num_envs=8, device="cpu")
     g2 = torch.Generator()
     g2.manual_seed(99)
     ts2, es2, obs2 = algo2.restore_tree(restore_checkpoint(str(tmp_path)), g2)

@@ -21,6 +21,7 @@ from gym_formation_tpu.ops.pallas.pairforce_sym import collision_forces_sym as j
 from gym_formation_tpu_torch import _device
 from gym_formation_tpu_torch.core import WallCfg, make_world_cfg
 from gym_formation_tpu_torch.core import physics as tphys
+from gym_formation_tpu_torch.ops import _build
 from gym_formation_tpu_torch.ops.kernels import pairforce_sym, reward_sym
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -160,17 +161,33 @@ def test_cpu_tensor_takes_plain_path_without_launch():
     assert (pairforce_sym.launches, reward_sym.launches) == before
 
 
-def test_unsupported_config_on_card_raises(monkeypatch):
-    """A world outside K1's envelope has no kernel yet: on a card it raises
-    instead of running the plain path.  The card is simulated by making the
-    dispatch rule answer 'kernel'."""
+def fake_card(monkeypatch):
+    """Simulate a card: the dispatch rule answers 'kernel' and the kernel
+    library is a stub whose launchers record their names and return 0.
+    Returns the list of launcher names called."""
+    calls = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append(name) or 0
+
     monkeypatch.setattr(_device, "use_kernel", lambda t: True)
+    monkeypatch.setattr(_build, "lib", lambda: _Lib())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})())
+    return calls
+
+
+def test_unsupported_config_on_card_raises(monkeypatch):
+    """On a card, a world outside K1's envelope reaches K6's launcher; a
+    world with nan_guard=False has no kernel in either package and raises
+    instead of running the plain path."""
+    calls = fake_card(monkeypatch)
     pos = torch.zeros(1, 3, 2)
     mixed = make_world_cfg(2, 1, agent_size=0.1, landmark_size=0.05, landmark_collide=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tphys.collision_forces(pos, mixed)
+    tphys.collision_forces(pos, mixed)
+    assert calls == ["pairforce_launch"]
     unguarded = dataclasses.replace(make_world_cfg(3, 0), nan_guard=False)
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(NotImplementedError, match="nan_guard"):
         tphys.collision_forces(pos, unguarded)
 
 

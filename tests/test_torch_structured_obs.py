@@ -100,7 +100,7 @@ def test_structured_update_matches_jax():
     ts_j2, m_j = jalgo._update(ts_j, data, jax.random.PRNGKey(1))
 
     talgo = MAPPO(gt.make_env("formation_hd_env", num_agents=N), MAPPOConfig(rollout_len=T, ppo_epochs=2),
-                  num_envs=B, dtype=F64)
+                  num_envs=B, device="cpu", dtype=F64)
     assert talgo.structured_obs
     ts = talgo.state_from_flax(jax.tree.map(np.asarray, p64))
     ts, m_t = talgo._update(ts, {k: torch.as_tensor(np.array(v)) for k, v in data.items()})
@@ -144,7 +144,7 @@ def test_structured_collection_builds_no_observation(monkeypatch):
     """At N >= 32 the auto gate takes the structured path; init returns no
     observation and train_step never calls observe."""
     env = gt.make_env("formation_hd_env", num_agents=32)
-    algo = MAPPO(env, MAPPOConfig(rollout_len=3, ppo_epochs=2), num_envs=4)
+    algo = MAPPO(env, MAPPOConfig(rollout_len=3, ppo_epochs=2), num_envs=4, device="cpu")
     assert algo.structured_obs and not algo.fused_collect
     calls = []
     observe = env.scenario.observe
@@ -157,6 +157,6 @@ def test_structured_collection_builds_no_observation(monkeypatch):
         ts, es, obs, m = algo.train_step(ts, es, obs, g)
         assert all(np.isfinite(float(v)) for v in m.values())
     assert calls == [] and obs is None
-    bf = MAPPO(env, MAPPOConfig(rollout_len=3, ppo_epochs=2, structured_bf16=True), num_envs=4)
+    bf = MAPPO(env, MAPPOConfig(rollout_len=3, ppo_epochs=2, structured_bf16=True), num_envs=4, device="cpu")
     _, _, _, m = bf.train_step(ts, es, obs, g)
     assert all(np.isfinite(float(v)) for v in m.values())
