@@ -29,7 +29,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    never.  Finite rewards, episode counters after the reset, and the card
    against the CPU plain path on small injected states.  Prints env-steps/s
    and host enqueue ms/step as phase 5 does, and K3's time beside its plain
-   version's; K2's masked form beside an unconditional recompute.
+   version's; K3's split on the path's state (K3 with external actions, K3
+   with the in-kernel BFS, K1 alone, K2 alone) beside its special-function
+   bound; K2's masked form beside an unconditional recompute.
 9. N=3 path: fused_rollout_hd at n=3, B=4096, length 256 (one K4 launch a
    window); env-steps/s as above, and K4's time beside its plain version's.
 10. K5 (MAPPO collection) against its plain version: n=3, B=4096, T=25,
@@ -1200,9 +1202,25 @@ def main() -> int:
     k3_ms, k3_plain_ms = time_pair(lambda: k3.fused_hd_step(fpos, fvel, None, fish, cfg, **k3kw),
                                    lambda: k3.fused_hd_step_plain(fpos, fvel, None, fish, cfg, **k3kw))
     print(f"K3 B={NUM_ENVS} bfs_ez pre: kernel {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms")
+    # K3's time split on the same state, in turns: the in-kernel BFS's share
+    # is bfs_ez - external; K1 and K2 alone do K3's pairs and statistics
+    fposc = fpos.contiguous()
+    fact = torch.as_tensor(np.random.RandomState(8).uniform(-5, 5, (NUM_ENVS, NUM_AGENTS, 2)), dtype=torch.float32, device=dev)
+    split = {
+        "K3 external": lambda: k3.fused_hd_step(fpos, fvel, fact, fish, cfg, thresh=THRESH, stats="pre"),
+        "K3 bfs_ez": lambda: k3.fused_hd_step(fpos, fvel, None, fish, cfg, **k3kw),
+        "K1": lambda: k1.collision_forces_sym(fposc, cfg),
+        "K2": lambda: k2.hd_reward_stats_sym(fposc, fish, thresh=THRESH),
+    }
+    split_ms = {name: [] for name in split}
+    for order in (list(split), list(split)[::-1]):
+        for name in order:
+            split_ms[name].append(time_ms(split[name], 20))
+    print("K3 split at the fused path's state (ms, two turns): " + ", ".join(
+        f"{name} {sum(v) / 2:.4f}" for name, v in split_ms.items()) + f"; K3's special-function bound "
+        f"{sfu_ms(NUM_ENVS * NUM_AGENTS * (NUM_AGENTS - 1)):.4f} ms")
     h_in, nc_in = k3.fused_hd_step(fpos, fvel, None, fish, cfg, **k3kw)[2:]
     no_reset = torch.zeros(NUM_ENVS, dtype=torch.bool, device=dev)
-    fposc = fpos.contiguous()
     masked_ms = time_ms(lambda: k2.hd_reward_stats_sym(fposc, fish, thresh=THRESH, mask=no_reset,
                                                        fallback=(h_in, nc_in)), 20)
 

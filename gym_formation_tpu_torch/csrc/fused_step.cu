@@ -15,32 +15,50 @@
 //   p'_i  = p_i + v'_i * dt
 //   stats on p (post = 0) or p' (post = 1): haus and per-agent counts, as K2
 //
-// What bounds it on the H100: the pair sweep, as in K1 -- one rsqrt, exp
-// and log1p per ordered pair, 59k pairs per env at N=243 -- plus the
-// statistics' agent-vertex sweep (and, post, the count sweep on the new
-// positions).  Device memory traffic is about 11 x N x 4 bytes per env.  The
-// policy is O(N) arithmetic but serial in its L levels, and its top levels
-// keep only a handful of threads busy.
+// What bounds it on the H100: instruction throughput in its two sweeps.  The
+// pair sweep takes each unordered pair once, about 44 SASS instructions a
+// pair in the loop of two full tiles with the collision count (rsqrt, ex2,
+// lg2; two shared loads; three shuffles), 29k pairs per env at N=243; the
+// statistics take one squared distance, two minima and one shuffle per
+// (agent, vertex), 59k per env.  Then the policy, O(N) arithmetic but
+// serial in its L levels (its top levels keep only a handful of threads
+// busy).  Device memory traffic is about 11 x N x 4 bytes per env.
 //
 // Design: one thread block per env, one thread per agent (256 threads at
-// N=243).  Positions, velocities' inputs and the ideal shape of the env sit
-// in shared memory (8 x N floats), the policy's centroid pyramid and its
-// two parent-velocity buffers beside them (about 6 x N more), 21 KB at
-// N=243.  The policy first builds the pyramid bottom-up (one level per
-// __syncthreads), then walks the L levels top-down: one thread computes all
-// three members of a group, and writes their velocities, the parents of the
-// next level, to shared memory.  Thread i then sums agent i's pair forces
-// over all j in registers (each pair twice, no atomics; the Newton's-third-
-// law triangle is a later speed-up), integrates, and in pre mode counts
-// collisions in the same sweep.  The statistics are hd_stats_block
-// (common.cuh), after a __syncthreads in post mode.
+// N=243).
+// - The policy builds its centroid pyramid bottom-up (one level per
+//   __syncthreads), then walks the L levels top-down: one thread computes
+//   all three members of a group and writes their velocities, the parents
+//   of the next level, to shared memory.
+// - The pair forces are pair_sweep (common.cuh) in K1's physics
+//   (contact_coef): each unordered pair once, in tiles of 32 agents taken in
+//   rounds, its term added to one agent and subtracted from the other, which
+//   gets exactly the negated term (the same d and coefficient).  In pre mode
+//   the collision count rides the same sweep as a third sum: the pair's
+//   squared distance is rounded step by step (rn_sq2, symmetric bit for bit)
+//   and a hit counts for both agents.  Post mode counts on the new positions
+//   with a second, count-only sweep of the triangle.
+// - The statistics (haus_rect) compute |c_i - s_j|^2 once per (agent i,
+//   vertex j): the thread of agent i keeps its row minimum, and the
+//   vertex's column minimum rotates through the warp as in K7 (lane l on
+//   vertex (l + s) mod 32 at step s, the running minimum handed one lane
+//   down each step), then merges across warps by atomicMin on its bit
+//   pattern (non-negative floats order as unsigned ints): a minimum is exact
+//   in any order.
+// Shared memory: positions and new positions, the sweep's two sets of sums
+// (3 each), the column minima and the shape, 13 floats per agent padded to
+// tiles of 32; the centred agents, 2 per agent; the policy's pyramid and two
+// parent-velocity buffers (about 6 x N): 21 KB at N=243.  Beyond 48 KB the
+// launcher opts in to more, up to the card's 227 KB (N <= 3872).
 //
 // Exactness: the policy's comparisons flip an agent's action wholesale, so
 // its arithmetic is spelled with rn_* (no contraction into fused
 // multiply-adds), in the plain version's order, with its /3 as a division:
 // on the card the policy's actions equal the plain version's bit for bit.
-// The collision counts are rounded step by step, as in K2.  The forces and
-// the Hausdorff distance carry only rounding differences.
+// The collision counts are exact (integers summed as floats).  Every sum
+// goes in an order fixed by N alone, so two launches give the same bits;
+// the forces differ from the plain version's by rounding and by the
+// softplus's ex2 and lg2 (contact_coef), the Hausdorff distance by rounding.
 
 #include <math.h>
 
@@ -172,6 +190,87 @@ static __device__ const float* bfs_ez_block(const float* x, const float* y,
   return in;
 }
 
+// The contact pairs of the agent subset (uniform size, mass and threshold):
+// FORCE adds K1's pair force (x, y), COUNT the collision count.
+template <bool FORCE, bool COUNT>
+struct UniformPair {
+  static constexpr int NC = 2 * FORCE + COUNT;
+  struct Ent {
+    float x, y;
+  };
+  const float* x;
+  const float* y;
+  float c_exp, c_log, cf, dmin, thresh2;  // log2(e) / k, k ln 2, ...
+
+  __device__ Ent load(int e) const { return {x[e], y[e]}; }
+  __device__ bool tiles(int, int) const { return true; }
+  __device__ void operator()(const Ent& a, const Ent& b, bool ok, float ta[NC], float tb[NC]) const {
+    const float dx = a.x - b.x, dy = a.y - b.y;
+    if constexpr (FORCE) {
+      float g = contact_coef(dx, dy, dmin, c_exp, c_log, cf);
+      if (!ok) g = 0.f;
+      ta[0] = g * dx;
+      ta[1] = g * dy;
+      tb[0] = -ta[0];
+      tb[1] = -ta[1];
+    }
+    if constexpr (COUNT) {
+      const bool hit = ok && rn_sq2(rn_sub(a.x, b.x), rn_sub(a.y, b.y)) < thresh2;
+      ta[NC - 1] = tb[NC - 1] = hit ? 1.f : 0.f;
+    }
+  }
+};
+
+// sqrt(max(max_i min_j |c_i - s_j|^2, max_j min_i |c_i - s_j|^2)) of the N
+// agents (rx, ry) centred on their centroid into (cx, cy) and the shape
+// (sx, sy), one squared distance per (agent, vertex).  The shape is padded
+// to tiles of 32 with far vertices (FAR_VERTEX) and the rows past N are far
+// agents on the other side, so that no step needs a mask: a pad's squared
+// distance, about 1e36, never wins a minimum of a real row or column.
+// colmin: N words of shared scratch.  Every thread must call this (it
+// synchronises).
+#define FAR_VERTEX 1e18f
+static __device__ float haus_rect(const float* rx, const float* ry, const float* sx,
+                                  const float* sy, float* cx, float* cy,
+                                  unsigned* colmin, int N, float* scratch) {
+  for (int t = threadIdx.x; t < N; t += blockDim.x) colmin[t] = __float_as_uint(FLT_MAX);
+  block_centroid(rx, ry, cx, cy, N, scratch);  // ends with __syncthreads
+  const int lane = threadIdx.x & 31;
+  float worst = 0.f;  // squared distances are >= 0
+  // every thread takes the same number of row passes, so that whole warps
+  // take part in the shuffles
+  for (int row0 = 0; row0 < N; row0 += blockDim.x) {
+    const int i = row0 + threadIdx.x;
+    const bool real = i < N;
+    const float ax = real ? cx[i] : -FAR_VERTEX, ay = real ? cy[i] : -FAR_VERTEX;
+    float rmin = FLT_MAX;
+    for (int j0 = 0; j0 < N; j0 += 32) {
+      float acc = FLT_MAX;  // at step s: the minimum of vertex j0 + (lane + s) % 32
+#pragma unroll 8
+      for (int s = 0; s < 32; ++s) {
+        const int j = j0 + ((lane + s) & 31);
+        const float dx = ax - sx[j], dy = ay - sy[j];
+        const float d2 = dx * dx + dy * dy;
+        rmin = fminf(rmin, d2);
+        acc = __shfl_sync(0xffffffffu, fminf(acc, d2), (lane + 1) & 31);
+      }
+      if (j0 + lane < N) atomicMin(&colmin[j0 + lane], __float_as_uint(acc));
+    }
+    if (real) worst = fmaxf(worst, rmin);
+  }
+  __syncthreads();
+  for (int t = threadIdx.x; t < N; t += blockDim.x)
+    worst = fmaxf(worst, __uint_as_float(colmin[t]));
+  return sqrtf(block_reduce(worst, scratch, true));
+}
+
+__host__ __device__ inline size_t fused_step_smem_floats(int N, int L) {
+  const size_t Ep = (size_t)((N + 31) / 32) * 32;
+  size_t floats = 13 * Ep + (size_t)2 * N + 32;
+  if (L > 0) floats += (size_t)4 * ((N - 1) / 2) + (size_t)4 * N;
+  return floats;
+}
+
 __global__ void fused_step_kernel(
     const float* __restrict__ apos, const float* __restrict__ avel,
     const float* __restrict__ aforce, const float* __restrict__ ishape,
@@ -181,15 +280,19 @@ __global__ void fused_step_kernel(
     int post, float k, float invk, float cf, float dmin, float thresh2,
     float keep, float fscale, float dt, float max_speed, float act_scale) {
   extern __shared__ float sh[];
-  float* x = sh;            // input positions
-  float* y = x + N;
-  float* sx = y + N;        // ideal shape
-  float* sy = sx + N;
-  float* qx = sy + N;       // new positions (post-mode statistics)
-  float* qy = qx + N;
-  float* cx = qy + N;       // statistics scratch: centred positions
+  const int Ep = ((N + 31) >> 5) << 5;
+  float* x = sh;              // input positions (Ep: pads at 0)
+  float* y = x + Ep;
+  float* qx = y + Ep;         // new positions (Ep: pads at 0)
+  float* qy = qx + Ep;
+  float* own = qy + Ep;       // the pair sweep's sums: 3 x Ep
+  float* react = own + 3 * Ep;  // 3 x Ep
+  unsigned* colmin = (unsigned*)(react + 3 * Ep);  // Ep
+  float* sx = (float*)colmin + Ep;  // ideal shape (Ep: pads at FAR_VERTEX)
+  float* sy = sx + Ep;
+  float* cx = sy + Ep;        // statistics scratch: centred positions
   float* cy = cx + N;
-  float* scratch = cy + N;  // 32 floats
+  float* scratch = cy + N;    // 32 floats
   float* pyr = scratch + 32;           // L > 0: 4 x (N - 1) / 2
   float* pv = pyr + 4 * ((N - 1) / 2);  // L > 0: 4 x N
 
@@ -197,34 +300,29 @@ __global__ void fused_step_kernel(
   const float* p_in = apos + (size_t)b * pos_bstride;
   const float* v_in = avel + (size_t)b * vel_bstride;
   const size_t base = (size_t)b * N * 2;
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    x[t] = p_in[2 * t];
-    y[t] = p_in[2 * t + 1];
-    sx[t] = ishape[base + 2 * t];
-    sy[t] = ishape[base + 2 * t + 1];
+  for (int t = threadIdx.x; t < Ep; t += blockDim.x) {
+    const bool real = t < N;
+    x[t] = real ? p_in[2 * t] : 0.f;
+    y[t] = real ? p_in[2 * t + 1] : 0.f;
+    qx[t] = qy[t] = 0.f;
+    sx[t] = real ? ishape[base + 2 * t] : FAR_VERTEX;
+    sy[t] = real ? ishape[base + 2 * t + 1] : FAR_VERTEX;
+    for (int c = 0; c < 3; ++c) own[c * Ep + t] = react[c * Ep + t] = 0.f;
   }
   __syncthreads();
 
   const float* act = nullptr;
   if (L > 0) act = bfs_ez_block(x, y, sx, sy, pyr, pv, N, L, ivel[2 * b], ivel[2 * b + 1]);
 
+  const float c_exp = invk * 1.44269504f, c_log = k * 0.693147181f;
+  if (post)
+    pair_sweep(UniformPair<true, false>{x, y, c_exp, c_log, cf, dmin, thresh2}, N, own, react);
+  else
+    pair_sweep(UniformPair<true, true>{x, y, c_exp, c_log, cf, dmin, thresh2}, N, own, react);
+
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const float xi = x[i], yi = y[i];
-    float fx = 0.f, fy = 0.f;
-    int cnt = 0;
-    for (int j = 0; j < N; ++j) {
-      if (j == i) continue;
-      const float dx = xi - x[j];
-      const float dy = yi - y[j];
-      const float s = fmaxf(dx * dx + dy * dy, 1e-24f);
-      const float r = rsqrtf(s);
-      const float z = (dmin - s * r) * invk;
-      const float pen = (fmaxf(z, 0.f) + log1pf(expf(-fabsf(z)))) * k;
-      const float c = cf * pen * r;
-      fx += c * dx;
-      fy += c * dy;
-      if (!post) cnt += rn_sq2(rn_sub(xi, x[j]), rn_sub(yi, y[j])) < thresh2;
-    }
+    float fx = own[i] + react[i];
+    float fy = own[Ep + i] + react[Ep + i];
     if (L > 0) {
       fx += act_scale * act[i];
       fy += act_scale * act[N + i];
@@ -241,19 +339,26 @@ __global__ void fused_step_kernel(
       vx *= scale;
       vy *= scale;
     }
-    const float nx = xi + vx * dt, ny = yi + vy * dt;
+    const float nx = x[i] + vx * dt, ny = y[i] + vy * dt;
     nvel[base + 2 * i] = vx;
     nvel[base + 2 * i + 1] = vy;
     npos[base + 2 * i] = nx;
     npos[base + 2 * i + 1] = ny;
     qx[i] = nx;
     qy[i] = ny;
-    if (!post) ncoll[(size_t)b * N + i] = (float)cnt;
+    if (!post) ncoll[(size_t)b * N + i] = own[2 * Ep + i] + react[2 * Ep + i];
   }
-  __syncthreads();  // post: qx/qy complete before the statistics read them
+  __syncthreads();  // post: qx/qy complete, own/react read
 
-  const float h = hd_stats_block(post ? qx : x, post ? qy : y, sx, sy, cx, cy, N,
-                                 thresh2, post != 0, ncoll + (size_t)b * N, scratch);
+  if (post) {
+    for (int t = threadIdx.x; t < Ep; t += blockDim.x) own[t] = react[t] = 0.f;
+    __syncthreads();
+    pair_sweep(UniformPair<false, true>{qx, qy, c_exp, c_log, cf, dmin, thresh2}, N, own, react);
+    for (int i = threadIdx.x; i < N; i += blockDim.x)
+      ncoll[(size_t)b * N + i] = own[i] + react[i];
+  }
+
+  const float h = haus_rect(post ? qx : x, post ? qy : y, sx, sy, cx, cy, colmin, N, scratch);
   if (threadIdx.x == 0) haus[b] = h;
 }
 
@@ -266,9 +371,13 @@ extern "C" int fused_step_launch(
   if (B == 0 || N == 0) return 0;
   int threads = ((N + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  size_t floats = (size_t)8 * N + 32;
-  if (L > 0) floats += (size_t)4 * ((N - 1) / 2) + (size_t)4 * N;
-  fused_step_kernel<<<B, threads, floats * sizeof(float), (cudaStream_t)stream>>>(
+  const size_t smem = fused_step_smem_floats(N, L) * sizeof(float);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_step_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
       (const float*)apos, (const float*)avel, (const float*)aforce,
       (const float*)ishape, (const float*)ivel, (float*)npos, (float*)nvel,
       (float*)haus, (float*)ncoll, N, pos_bstride, vel_bstride, L, post, k,

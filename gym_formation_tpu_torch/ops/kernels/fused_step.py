@@ -33,12 +33,16 @@ from . import pairforce_sym, reward_sym
 
 launches = 0
 
-# Shared memory a block may use without opting in to more.
-_SMEM_FLOATS = 48 * 1024 // 4
+# Shared memory a block may use on the H100, opted in beyond 48 KB.
+_SMEM_FLOATS = 232448 // 4
 
 
 def _smem_floats(N: int, bfs: bool) -> int:
-    return 8 * N + 32 + ((4 * ((N - 1) // 2) + 4 * N) if bfs else 0)
+    """The kernel's shared memory (``fused_step_smem_floats`` in the
+    source): 13 floats an agent padded to tiles of 32, 2 an agent and 32,
+    and the policy's pyramid and buffers."""
+    Ep = 32 * -(-N // 32)
+    return 13 * Ep + 2 * N + 32 + ((4 * ((N - 1) // 2) + 4 * N) if bfs else 0)
 
 
 def _validate(cfg: WorldCfg, N: int, stats: str, bfs_L, ideal_vel, act_scale) -> None:
@@ -147,7 +151,7 @@ def fused_hd_step(
         if not ok:
             raise ValueError(f"K3 takes a contiguous {name} tensor")
     if _smem_floats(N, bfs) > _SMEM_FLOATS:
-        raise ValueError(f"K3 does not hold N={N} agents (bfs={bfs}) in 48 KB of shared memory")
+        raise ValueError(f"K3 does not hold N={N} agents (bfs={bfs}) in the card's shared memory")
     ms = _max_speed(cfg)
     npos = torch.empty(B, N, 2, dtype=torch.float32, device=apos.device)
     nvel = torch.empty_like(npos)

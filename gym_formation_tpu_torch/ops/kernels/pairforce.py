@@ -7,9 +7,9 @@ Its source note says what bounds it on the H100 and how it is laid out.
 Unlike K1 it takes per-entity sizes, masses and masks: the subset may mix
 sizes (hd_obs: agents 0.1, obstacles 0.15), masses and immovable or
 non-colliding members.  The TPU kernel reads a static ``[Ep, Ep]`` pair
-table ``pairc = mask · (m_j/m_i | 1)``; the card's kernel keeps four
-per-entity vectors in shared memory and forms each pair's coefficient on
-the fly.
+table ``pairc = mask · (m_j/m_i | 1)``; the card's kernel keeps two float4s
+an entity in shared memory, evaluates each unordered pair once and weighs
+its term for each side on the fly.
 
 :func:`collision_forces_batched` is the wrapper: a CUDA tensor launches the
 kernel, a CPU tensor takes :func:`collision_forces_batched_plain`, the same
@@ -27,9 +27,19 @@ from .. import _build
 
 launches = 0
 
-# Largest entity count whose positions and four per-entity vectors fit the
-# kernel's default 48 KB of shared memory (E x 6 floats).
-MAX_ENTITIES = 48 * 1024 // 24
+# Shared memory a block may use on the H100, opted in beyond 48 KB.
+_SMEM_MAX = 232448
+
+
+def _smem_bytes(E: int) -> int:
+    """The kernel's shared memory (``pairforce_smem_bytes`` in the source):
+    12 floats an entity padded to tiles of 32, and a flag word a tile."""
+    T = -(-E // 32)
+    return 4 * (12 * 32 * T + T)
+
+
+# Largest entity count whose tiles fit the card's shared memory: 4800.
+MAX_ENTITIES = 32 * (_SMEM_MAX // _smem_bytes(32))
 
 
 def _pair_tables(cfg: WorldCfg):

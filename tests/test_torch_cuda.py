@@ -137,6 +137,59 @@ def test_k3_reads_a_strided_agent_slice(dev):
         assert torch.equal(g, w)
 
 
+def _all_contact(rng, B, N, box):
+    """[B, N, 2] positions in a box of side ``box``, smaller than the contact
+    distance over the square root of 2: every pair is in contact, so every
+    term of every pair sweep is large."""
+    return rng.uniform(0.0, box, (B, N, 2)) - box / 2
+
+
+# The pair sweep takes tiles of 32: 31, 32 and 33 agents fill one tile short,
+# exactly, and one over (a second tile of one agent); 64 is an even count of
+# tiles, whose last round takes each tile pair from one side only; 65 three
+# tiles; 243 eight tiles, the last one of 19 agents; 1100 35 tiles, more than
+# the 32 warps of a block, in more than 48 KB of shared memory.
+@pytest.mark.parametrize("stats", ["pre", "post"])
+@pytest.mark.parametrize("N,policy", [(31, "external"), (32, "external"), (33, "external"), (64, "external"),
+                                      (65, "external"), (243, "external"), (243, "bfs_ez"), (1100, "external")])
+def test_k3_every_pair_in_contact(dev, N, policy, stats):
+    """All agents within 0.04 of each other (the contact distance is 0.06):
+    a pair the sweep skipped or took twice would move the forces far beyond
+    the tolerances of tests/test_fused_step.py, and the collision counts,
+    which the sweep carries in pre mode and sweeps again in post mode,
+    must be exact.  The in-kernel BFS where 3^L = N."""
+    x = _k3_inputs(dev, N, 3, 7 * N)
+    apos = torch.as_tensor(_all_contact(np.random.RandomState(N), 3, N, 0.04), dtype=torch.float32, device=dev)
+    cfg = make_world_cfg(N, 0, agent_size=0.03)
+    kw = dict(thresh=0.03, stats=stats)
+    if policy == "bfs_ez":
+        kw.update(bfs_L=5, ideal_vel=x["ideal_vel"], act_scale=5.0)
+    force = None if policy == "bfs_ez" else x["aforce"]
+    got = k3.fused_hd_step(apos, x["avel"], force, x["ishape"], cfg, **kw)
+    want = k3.fused_hd_step_plain(apos, x["avel"], force, x["ishape"], cfg, **kw)
+    _k3_check(got, want)
+    if stats == "pre":
+        assert int(got[3].sum()) > 0
+
+
+def test_k3_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits: the pair sweep's
+    sums go in a fixed order.  N=243 (eight tiles of 32, the last one
+    short) and N=1100 (35 tiles, more than the 32 warps of a block), pre and
+    post, squeezed so that many pairs are in contact."""
+    for N, L in ((243, 5), (1100, None)):
+        x = _k3_inputs(dev, N, 5, N, squeeze=0.1)
+        cfg = make_world_cfg(N, 0, agent_size=0.03)
+        for stats in ("pre", "post"):
+            kw = dict(thresh=0.03, stats=stats)
+            if L:
+                kw.update(bfs_L=L, ideal_vel=x["ideal_vel"], act_scale=5.0)
+            force = None if L else x["aforce"]
+            one = k3.fused_hd_step(x["apos"], x["avel"], force, x["ishape"], cfg, **kw)
+            two = k3.fused_hd_step(x["apos"], x["avel"], force, x["ishape"], cfg, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
 def test_k2_masked_matches_plain(dev):
     N, B = 243, 9
     x = _k3_inputs(dev, N, B, 5, squeeze=0.05)
@@ -187,9 +240,9 @@ def test_k3_k4_wrappers_reject_bad_inputs(dev):
         k3.fused_hd_step(x["apos"], x["avel"], x["aforce"].transpose(0, 1).contiguous().transpose(0, 1),
                          x["ishape"], cfg, thresh=0.03)
     with pytest.raises(ValueError, match="shared memory"):
-        big = _k3_inputs(dev, 2000, 1, 0)
+        big = _k3_inputs(dev, 4000, 1, 0)
         k3.fused_hd_step(big["apos"], big["avel"], big["aforce"], big["ishape"],
-                         make_world_cfg(2000, 0, agent_size=0.03), thresh=0.03)
+                         make_world_cfg(4000, 0, agent_size=0.03), thresh=0.03)
     soa = _soa(dev, 5, 4, 10, 0)
     with pytest.raises(ValueError, match="built for n"):
         k4.fused_rollout_hd(soa, 0, length=2, ep_len=10, n=5)
@@ -395,6 +448,39 @@ def test_k6_matches_plain(dev, E, B):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
 
 
+# Tiles of 32: 2 is one pair in a diagonal tile; 31, 32, 33 one tile short,
+# exactly, one over; 64 an even count of tiles (the last round from one side
+# only), 65 three; 246 eight tiles (the hd_obs subset at N=243), the last of
+# 22; 1500 47 tiles, more than the 32 warps of a block.
+@pytest.mark.parametrize("E", [2, 31, 32, 33, 64, 65, 246, 1500])
+def test_k6_every_pair_in_contact(dev, E):
+    """The mixed cfg with every entity within 0.12 of every other (the
+    contact distances are 0.2 to 0.3): every pair's term is large, so a pair
+    the sweep skipped or took twice would show far beyond atol = rtol =
+    1e-3.  Immovable and non-colliding entities keep their weights."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+
+    cfg = _mixed_cfg(E, E)
+    pos = torch.as_tensor(_all_contact(np.random.RandomState(E), 3, E, 0.12), dtype=torch.float32, device=dev)
+    got = k6.collision_forces_batched(pos, cfg)
+    want = k6.collision_forces_batched_plain(pos, cfg)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_k6_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits (the pair sweep's
+    sums go in a fixed order): E=246 (eight tiles) and E=1500 (47 tiles,
+    more than the warps of a block), dense, the mixed cfg."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce as k6
+
+    for E in (246, 1500):
+        cfg = _mixed_cfg(E, E)
+        pos = torch.as_tensor(np.random.RandomState(E).uniform(-0.5, 0.5, (4, E, 2)),
+                              dtype=torch.float32, device=dev)
+        assert torch.equal(k6.collision_forces_batched(pos, cfg), k6.collision_forces_batched(pos, cfg))
+
+
 @pytest.mark.parametrize("N,B,scale", [(1, 2, 1.0), (5, 3, 0.05), (100, 9, 0.05), (243, 4, 1.0), (1100, 2, 0.05)])
 def test_k7_matches_plain_and_k2(dev, N, B, scale):
     from gym_formation_tpu_torch.ops.kernels import reward as k7
@@ -485,6 +571,9 @@ def test_k6_k7_k8_wrappers_reject_bad_inputs(dev):
             fn(torch.zeros(2, 16, 2, device=dev)[:, ::2], cfg)
         with pytest.raises(ValueError, match="entities"):
             fn(torch.zeros(2, 9, 2, device=dev), cfg)
+    big = _mixed_cfg(k6.MAX_ENTITIES + 1, 0)
+    with pytest.raises(ValueError, match="at most"):
+        k6.collision_forces_batched(torch.zeros(1, big.n_entities, 2, device=dev), big)
     with pytest.raises(ValueError, match="one shape"):
         k7.hd_reward_stats_batched(pos, torch.zeros(2, 7, 2, device=dev), thresh=0.03)
 

@@ -131,3 +131,27 @@ def test_k2_masked_form():
     assert nc.sum() > 0
     with pytest.raises(ValueError, match="together"):
         reward_sym.hd_reward_stats_sym(apos, ishape, thresh=THRESH, mask=mask)
+
+
+@pytest.mark.parametrize("N,bfs_L", [(1, None), (243, 5), (1532, None), (2187, 7), (3872, None)])
+def test_fused_step_wrapper_admits_what_its_shared_memory_holds(monkeypatch, N, bfs_L):
+    """On a (simulated) card the launcher takes every N up to what the H100's
+    227 KB a block hold (3872 agents; 1532, the largest N of the earlier
+    48 KB layout; 2187 = 3^7 with the in-kernel BFS), and the wrapper raises
+    one agent beyond."""
+    from test_torch_physics import fake_card
+
+    calls = fake_card(monkeypatch)
+    assert fused_step._smem_floats(N, bfs_L is not None) <= fused_step._SMEM_FLOATS
+
+    def step(n):
+        z = torch.zeros(1, n, 2)
+        kw = dict(bfs_L=bfs_L, ideal_vel=torch.zeros(1, 2), act_scale=5.0) if bfs_L else {}
+        return fused_step.fused_hd_step(z, z, None if bfs_L else z, z, make_world_cfg(n, 0, agent_size=0.03),
+                                        thresh=THRESH, **kw)
+
+    step(N)
+    assert calls == ["fused_step_launch"]
+    if N == 3872:
+        with pytest.raises(ValueError, match="shared memory"):
+            step(N + 1)

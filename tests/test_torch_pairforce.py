@@ -122,3 +122,21 @@ def test_k6_needs_nan_guard():
     cfg = dataclasses.replace(make_world_cfg(3, 0), nan_guard=False)
     with pytest.raises(ValueError, match="nan_guard"):
         pairforce.collision_forces_batched(torch.zeros(1, 3, 2), cfg)
+
+
+def test_k6_wrapper_admits_what_its_shared_memory_holds(monkeypatch):
+    """On a (simulated) card the launcher takes every entity count up to
+    MAX_ENTITIES, 4800: 12 floats an entity in tiles of 32 and a flag word a
+    tile fit the H100's 227 KB a block, one more tile does not; beyond it
+    the wrapper raises."""
+    from test_torch_physics import fake_card
+
+    calls = fake_card(monkeypatch)
+    top = pairforce.MAX_ENTITIES
+    assert pairforce._smem_bytes(top) <= pairforce._SMEM_MAX < pairforce._smem_bytes(top + 1)
+    assert top >= 2048  # what the kernel held before
+    for E in (1, 33, 1500, top):
+        pairforce.collision_forces_batched(torch.zeros(1, E, 2), make_world_cfg(E, 0, agent_size=0.03))
+    assert calls == ["pairforce_launch"] * 4
+    with pytest.raises(ValueError, match="at most"):
+        pairforce.collision_forces_batched(torch.zeros(1, top + 1, 2), make_world_cfg(top + 1, 0))
