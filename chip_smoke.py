@@ -8,7 +8,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    versions.  Without a CUDA device the script exits 1 and prints no result.
 2. Build: compiles the CUDA kernels under gym_formation_tpu_torch/csrc/
    into build/kernels/ (at first use) and prints the build seconds.
-3. K1 (pair forces) against its plain PyTorch version on the card.
+3. K1 (pair forces) against its plain PyTorch version on the card: N=243
+   at B=512 and 4096, exact contact and zero distance, and every pair in
+   contact (all agents within 0.04, the contact distance 0.06).
 4. K2 (reward statistics) against its plain PyTorch version on the card.
 5. Step path: make_vec_env("formation_hd_env", num_envs=4096,
    num_agents=243) stepped 128 steps under the BFS + ezpolicy controller by
@@ -64,10 +66,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 15. K7 (row-major reward statistics) against its plain version and against
    K2 on phase 4's fixtures: Hausdorff atol 1e-5 (1e-6 against K2), counts
    exact.
-16. K8 (Morton-culled pair forces) against its plain version (1e-3) and K6
-   (atol 2e-4, rtol 1e-4) at E=243 and 246, B=4096, dense and spread; its
-   evaluated tile pairs against the plain box test's.  Prints the culled
-   share, the argsort's and the kernel's time.
+16. K8 (culled pair forces, a per-env grid of cells built in the kernel)
+   against its plain version (1e-3) and K6 (atol 2e-4, rtol 1e-4) at E=243
+   and 246, B=4096, dense and spread; its evaluated pairs against the plain
+   grid's candidates and the near pairs.  Prints the candidates against the
+   near pairs and against E(E-1), and the wrapper's time (one launch).
 17. hd_obs path: make_vec_env("formation_hd_obs_env", num_envs=4096,
    num_agents=243) stepped 128 steps (world_length 50, so auto-resets are
    crossed) under bench.py's linear policy clip(obs @ W, -1, 1).  K6 once a
@@ -664,28 +667,27 @@ def phase_k7(dev, rng):
 
 
 def k8_report(pos, cfg, label):
-    """K8's culled share and its time split on ``pos``: the wrapper (sort and
-    kernel) and the sort alone are timed; the kernel is their difference.
-    Returns (culled share, wrapper ms, sort ms, kernel ms)."""
+    """K8's evaluated pairs on ``pos`` against the near pairs (the function's
+    need) and against all E(E-1) ordered pairs, and the wrapper's time (one
+    launch).  Returns (evaluated pairs, near pairs, wrapper ms)."""
     from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
 
     B, E = pos.shape[:2]
-    T = -(-E // k8.TILE)
-    tiles = torch.zeros(B, dtype=torch.int32, device=pos.device)
-    k8.collision_forces_culled(pos, cfg, tiles=tiles)
-    culled = 1.0 - int(tiles.sum()) / (B * T * T)
-    sort_ms = time_ms(lambda: k8.morton_order(pos), 20)
+    pairs = torch.zeros(B, dtype=torch.int32, device=pos.device)
+    k8.collision_forces_culled(pos, cfg, pairs=pairs)
+    cand = int(pairs.long().sum())
+    near = near_pairs(pos, k8.cutoff(cfg))
     wrap_ms = time_ms(lambda: k8.collision_forces_culled(pos, cfg), 20)
-    kern_ms = wrap_ms - sort_ms
-    print(f"K8 {label} B={B} E={E}: culled {culled:.4f} of {T * T} tile pairs an env; "
-          f"argsort {sort_ms:.4f} ms, kernel {kern_ms:.4f} ms, wrapper (sort + kernel) {wrap_ms:.4f} ms")
-    return culled, wrap_ms, sort_ms, kern_ms
+    print(f"K8 {label} B={B} E={E}: {cand} pairs evaluated ({cand / (B * E):.2f} a receiver), "
+          f"{cand / max(near, 1):.3f}x the {near} near pairs, {cand / (B * E * (E - 1)):.4f} of E(E-1); "
+          f"wrapper {wrap_ms:.4f} ms")
+    return cand, near, wrap_ms
 
 
 def phase_k8(dev, rng):
     """K8 against its plain version and against K6 at E=243 (the hd subset)
     and E=246 (the hd_obs subset), B=4096, on dense and spread positions;
-    its count of evaluated tile pairs against the plain box test's."""
+    its count of evaluated pairs against the plain grid's candidates."""
     from gym_formation_tpu_torch.core import make_world_cfg
     from gym_formation_tpu_torch.ops.kernels import pairforce as k6
     from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
@@ -697,8 +699,8 @@ def phase_k8(dev, rng):
         for spread in (0.5, 3.0):
             E = cfg.n_entities
             pos = torch.as_tensor(rng.uniform(-spread, spread, (NUM_ENVS, E, 2)), dtype=torch.float32, device=dev)
-            tiles = torch.zeros(NUM_ENVS, dtype=torch.int32, device=dev)
-            got = k8.collision_forces_culled(pos, cfg, tiles=tiles)
+            pairs = torch.zeros(NUM_ENVS, dtype=torch.int32, device=dev)
+            got = k8.collision_forces_culled(pos, cfg, pairs=pairs)
             want = k8.collision_forces_culled_plain(pos, cfg)
             dense = k6.collision_forces_batched(pos, cfg)
             torch.cuda.synchronize()
@@ -706,11 +708,13 @@ def phase_k8(dev, rng):
             require(bool(torch.isfinite(got).all()), f"{what}: non-finite forces")
             err = max(err, check_close(got, want, 1e-3, 1e-3, what + " against plain"))
             check_close(got, dense, 2e-4, 1e-4, what + " against K6")
-            require(torch.equal(tiles.long(), k8.tile_pairs_plain(pos, cfg)),
-                    f"{what}: evaluated tile pairs differ from the plain box test")
+            require(torch.equal(pairs.long(), k8.candidate_pairs_plain(pos, cfg)),
+                    f"{what}: evaluated pairs differ from the plain grid's candidates")
             print(f"{what}: max abs err {max_err(got, want):.3e} against plain (atol=rtol=1e-3), "
-                  f"{max_err(got, dense):.3e} against K6 (atol 2e-4, rtol 1e-4); tile pairs equal the plain test's")
-            k8_report(pos, cfg, f"{label} spread {spread}")
+                  f"{max_err(got, dense):.3e} against K6 (atol 2e-4, rtol 1e-4); evaluated pairs equal "
+                  f"the plain grid's")
+            cand, near, _ = k8_report(pos, cfg, f"{label} spread {spread}")
+            require(cand >= near, f"{what}: fewer pairs evaluated than lie within the cutoff")
     return err
 
 
@@ -882,10 +886,9 @@ def phase_selectors(dev, kmods):
 
     cfg = make_world_cfg(NUM_AGENTS, 0, agent_size=0.03)
     pos = scen.agent_pos(out["cull"]["state"]).contiguous()
-    culled, ms8, sort_ms, kern_ms = k8_report(pos, cfg, "cull path state")
-    _, plain8 = time_pair(lambda: k8.collision_forces_culled(pos, cfg),
-                          lambda: k8.collision_forces_culled_plain(pos, cfg))
-    near = near_pairs(pos, k8.cutoff(cfg))
+    cand, near, _ = k8_report(pos, cfg, "cull path state")
+    ms8, plain8 = time_pair(lambda: k8.collision_forces_culled(pos, cfg),
+                            lambda: k8.collision_forces_culled_plain(pos, cfg))
     print(f"K8 B={NUM_ENVS} cull path: wrapper {ms8:.4f} ms, plain {plain8:.4f} ms; {near} ordered pairs "
           f"within the cutoff ({near / (NUM_ENVS * NUM_AGENTS * (NUM_AGENTS - 1)):.4f} of all); "
           f"special-function bound of those {sfu_ms(near):.4f} ms")
@@ -896,7 +899,7 @@ def phase_selectors(dev, kmods):
     ms7, plain7 = time_pair(lambda: k7.hd_reward_stats_batched(rpos, rish, thresh=THRESH),
                             lambda: k7.hd_reward_stats_batched_plain(rpos, rish, thresh=THRESH))
     print(f"K7 B={NUM_ENVS} rowmajor path: kernel {ms7:.4f} ms, plain {plain7:.4f} ms")
-    return dict(out=out, k8=dict(ms=ms8, plain_ms=plain8, near=near, culled=culled),
+    return dict(out=out, k8=dict(ms=ms8, plain_ms=plain8, near=near, pairs=cand),
                 k7=dict(ms=ms7, plain_ms=plain7))
 
 
@@ -982,19 +985,25 @@ def main() -> int:
     cfg = make_world_cfg(NUM_AGENTS, 0, agent_size=0.03)  # the hd colliding subset
     p = k1._params(cfg)
     k1_err = 0.0
-    for B in (512, NUM_ENVS, 5):
-        pos = rng.uniform(-0.5, 0.5, (B, NUM_AGENTS, 2)).astype(np.float32)
-        if B == 5:  # exact contact, deep penetration, zero distance
-            pos[:, 1] = pos[:, 0] + np.float32([0.04, 0.0])
-            pos[:, 2] = pos[:, 0] + np.float32([0.0, 0.0601])
-            pos[:, 3] = pos[:, 4]
-        pos = torch.as_tensor(pos, device=dev)
+    contact = rng.uniform(-0.5, 0.5, (5, NUM_AGENTS, 2)).astype(np.float32)
+    contact[:, 1] = contact[:, 0] + np.float32([0.04, 0.0])  # exact contact, deep penetration, zero distance
+    contact[:, 2] = contact[:, 0] + np.float32([0.0, 0.0601])
+    contact[:, 3] = contact[:, 4]
+    # every pair in contact: a pair the sweep skipped or took twice would show
+    all_contact = rng.uniform(-0.02, 0.02, (64, NUM_AGENTS, 2)).astype(np.float32)
+    for label, pos in (("random", rng.uniform(-0.5, 0.5, (512, NUM_AGENTS, 2))),
+                       ("random", rng.uniform(-0.5, 0.5, (NUM_ENVS, NUM_AGENTS, 2))),
+                       ("contact", contact), ("all in contact", all_contact)):
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+        B = pos.shape[0]
         got = k1.collision_forces_sym(pos, cfg)
         want = k1.collision_forces_sym_plain(pos, **p)
         torch.cuda.synchronize()
-        require(bool(torch.isfinite(got).all()), f"K1 B={B}: non-finite forces")
-        k1_err = max(k1_err, check_close(got, want, 1e-3, 1e-3, f"K1 B={B}"))
-        print(f"K1 B={B} E={NUM_AGENTS}: max abs err {max_err(got, want):.3e} (atol=rtol=1e-3)")
+        require(bool(torch.isfinite(got).all()), f"K1 {label} B={B}: non-finite forces")
+        k1_err = max(k1_err, check_close(got, want, 1e-3, 1e-3, f"K1 {label} B={B}"))
+        print(f"K1 {label} B={B} E={NUM_AGENTS}: max abs err {max_err(got, want):.3e} (atol=rtol=1e-3)")
+    again = k1.collision_forces_sym(pos, cfg)
+    require(torch.equal(got, again), "K1: two launches differ")
 
     # -- 4. K2 -----------------------------------------------------------
     phase("K2 reward_sym vs plain")

@@ -30,9 +30,10 @@
 //   __syncthreads), then walks the L levels top-down: one thread computes
 //   all three members of a group and writes their velocities, the parents
 //   of the next level, to shared memory.
-// - The pair forces are pair_sweep (common.cuh) in K1's physics
-//   (contact_coef): each unordered pair once, in tiles of 32 agents taken in
-//   rounds, its term added to one agent and subtracted from the other, which
+// - The pair forces are pair_sweep (common.cuh) with K1's functor
+//   (UniformPair, contact_coef): each unordered pair once, in tiles of 32
+//   agents taken in rounds, its term added to one agent and subtracted from
+//   the other, which
 //   gets exactly the negated term (the same d and coefficient).  In pre mode
 //   the collision count rides the same sweep as a third sum: the pair's
 //   squared distance is rounded step by step (rn_sq2, symmetric bit for bit)
@@ -189,37 +190,6 @@ static __device__ const float* bfs_ez_block(const float* x, const float* y,
   }
   return in;
 }
-
-// The contact pairs of the agent subset (uniform size, mass and threshold):
-// FORCE adds K1's pair force (x, y), COUNT the collision count.
-template <bool FORCE, bool COUNT>
-struct UniformPair {
-  static constexpr int NC = 2 * FORCE + COUNT;
-  struct Ent {
-    float x, y;
-  };
-  const float* x;
-  const float* y;
-  float c_exp, c_log, cf, dmin, thresh2;  // log2(e) / k, k ln 2, ...
-
-  __device__ Ent load(int e) const { return {x[e], y[e]}; }
-  __device__ bool tiles(int, int) const { return true; }
-  __device__ void operator()(const Ent& a, const Ent& b, bool ok, float ta[NC], float tb[NC]) const {
-    const float dx = a.x - b.x, dy = a.y - b.y;
-    if constexpr (FORCE) {
-      float g = contact_coef(dx, dy, dmin, c_exp, c_log, cf);
-      if (!ok) g = 0.f;
-      ta[0] = g * dx;
-      ta[1] = g * dy;
-      tb[0] = -ta[0];
-      tb[1] = -ta[1];
-    }
-    if constexpr (COUNT) {
-      const bool hit = ok && rn_sq2(rn_sub(a.x, b.x), rn_sub(a.y, b.y)) < thresh2;
-      ta[NC - 1] = tb[NC - 1] = hit ? 1.f : 0.f;
-    }
-  }
-};
 
 // sqrt(max(max_i min_j |c_i - s_j|^2, max_j min_i |c_i - s_j|^2)) of the N
 // agents (rx, ry) centred on their centroid into (cx, cy) and the shape

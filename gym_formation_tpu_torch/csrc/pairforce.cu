@@ -25,12 +25,13 @@
 // term goes to both sides, f_ji = -f_ij up to each side's own weight.  The
 // TPU kernel streams a static [Ep, Ep] pair table (the mask times the mass
 // ratio) and a [Ep, Ep] table of contact radii through VMEM; here each
-// entity is two float4s in shared memory,
+// entity is two float4s in shared memory (contact_entity, common.cuh),
 //
 //   P = (x, y, size, 1/m),  Q = (A, B, movable * collide, collide)
 //   A = collide * (movable ? m : 0),  B = collide * (movable ? 0 : 1),
 //
-// so the weight of the pair's term on a is Q_a.z * (A_b * (1/m_a) + B_b),
+// so the weight of the pair's term on a is Q_a.z * (A_b * (1/m_a) + B_b)
+// (contact_weight, shared with K8),
 // which is collide_a collide_b movable_a (movable_b ? m_b / m_a : 1): the
 // mass ratio rounds twice where the plain version's f64 table rounds once.
 // The symmetric part, cf * pen * rsqrt(s), is computed once a pair
@@ -71,8 +72,8 @@ struct DensePair {
     const float dx = a.p.x - b.p.x, dy = a.p.y - b.p.y;
     float g = contact_coef(dx, dy, a.p.z + b.p.z, c_exp, c_log, cf);
     if (!ok) g = 0.f;
-    const float wa = a.q.z * fmaf(b.q.x, a.p.w, b.q.y);
-    const float wb = b.q.z * fmaf(a.q.x, b.p.w, a.q.y);
+    const float wa = contact_weight(a.p, a.q, b.q);
+    const float wb = contact_weight(b.p, b.q, a.q);
     const float gx = g * dx, gy = g * dy;
     ta[0] = wa * gx;
     ta[1] = wa * gy;
@@ -100,13 +101,7 @@ __global__ void pairforce_kernel(const float* __restrict__ pos,
   const size_t base = (size_t)blockIdx.x * E * 2;
   for (int t = threadIdx.x; t < Ep; t += blockDim.x) {
     float4 p = make_float4(0.f, 0.f, 0.f, 0.f), q = p;  // pads: finite, no weight
-    if (t < E) {
-      const float m = ent[E + t];
-      const bool mv = ent[2 * E + t] != 0.f, cl = ent[3 * E + t] != 0.f;
-      p = make_float4(pos[base + 2 * t], pos[base + 2 * t + 1], ent[t], 1.f / m);
-      q = make_float4(cl && mv ? m : 0.f, cl && !mv ? 1.f : 0.f, cl && mv ? 1.f : 0.f,
-                      cl ? 1.f : 0.f);
-    }
+    if (t < E) contact_entity(ent, E, t, pos[base + 2 * t], pos[base + 2 * t + 1], p, q);
     P[t] = p;
     Q[t] = q;
     own[t] = own[Ep + t] = react[t] = react[Ep + t] = 0.f;

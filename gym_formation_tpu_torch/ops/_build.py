@@ -36,8 +36,8 @@ SIGNATURES = {
     "pairforce_sym_launch": (_P, _P, _I, _I, _F, _F, _F, _F, _P),
     # pos, ent, force, B, E, k, cf, stream
     "pairforce_launch": (_P, _P, _P, _I, _I, _F, _F, _P),
-    # pos, order, ent, force, tiles, B, E, k, cf, cutoff, stream
-    "pairforce_cull_launch": (_P, _P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # pos, ent, force, pairs, B, E, k, cf, cell width, stream
+    "pairforce_cull_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
     # apos, ishape, mask, haus_fb, ncoll_fb, haus, ncoll, B, N, thresh2, stream
     "reward_sym_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     # apos, ishape, haus2, ncoll, B, N, thresh2, stream

@@ -1,16 +1,19 @@
-"""K8: soft-contact forces in Morton order with far tile pairs culled.
+"""K8: soft-contact forces with far pairs culled exactly, by a per-env grid.
 
 The CUDA kernel ``csrc/pairforce_cull.cu`` replaces the TPU kernel
 ``gym_formation_tpu/ops/pallas/pairforce_cull.py:collision_forces_culled``.
-Its source note says what bounds it on the H100, why the cull is exact and
-how it is laid out.  It computes K6's function up to the order of each
-receiver's sum.
+It computes K6's function up to the order of each receiver's sum.  Its
+source note says what bounds it on the H100, why the cull is exact and how
+it is laid out.
 
-The wrapper sorts each env's entities by :func:`morton_order` (PyTorch ops
-on the card, as the JAX package runs its sort in XLA outside the Pallas
-body); the kernel gathers in sorted order, culls, and writes each force back
-to its entity.  :func:`collision_forces_culled` launches the kernel on a
-CUDA tensor and takes :func:`collision_forces_culled_plain` on a CPU tensor.
+The TPU kernel sorts each env's entities by a Morton key outside its body
+and skips far tile pairs; one block of the card's kernel holds one env, bins
+its colliding entities into a uniform grid of cells at least
+:func:`cutoff` wide (:func:`grid_cells_plain`) and evaluates only the pairs
+in neighbouring cells (:func:`candidate_pairs_plain`).  The wrapper only
+allocates the output and launches.  :func:`collision_forces_culled` launches
+the kernel on a CUDA tensor and takes :func:`collision_forces_culled_plain`,
+the JAX package's Morton order and every pair, on a CPU tensor.
 ``launches`` counts kernel launches.
 """
 
@@ -24,18 +27,16 @@ import torch
 from ... import _device
 from ...core.types import WorldCfg
 from .. import _build
+from . import pairforce
 
 launches = 0
 
-TILE = 32
 # exp(z) underflows to 0 (or a subnormal that k·exp(z) rounds to 0) below
 # z = -103.98; pairs beyond dmin + CUTOFF_K · margin add exactly 0
 CUTOFF_K = 104.0
 _PAD_SIZE = -1.0e4  # sentinel size: folds collide=False into pen = 0
-
-# Largest entity count whose sorted positions, four per-entity vectors and
-# tile boxes fit the kernel's default 48 KB of shared memory.
-MAX_ENTITIES = 1984
+# Most cells the grid takes on one axis (the bound of the exactness proof).
+MAX_AXIS_CELLS = 1024
 
 
 def _spread16(v: torch.Tensor) -> torch.Tensor:
@@ -75,17 +76,13 @@ def _entity_table(cfg: WorldCfg) -> np.ndarray:
     ])
 
 
-def _sorted(pos: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
-    return torch.gather(pos, -2, order[..., None].expand(pos.shape))
-
-
 def collision_forces_culled_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
     """Plain PyTorch version of K8: pos [B, E, 2] → force [B, E, 2], in the
     dtype of ``pos``.  The sort, the pair math in Morton order over every
     pair (the cull only skips exact zeros), the receiver gate and the
     unsort."""
     order = morton_order(pos)
-    sp = _sorted(pos, order)
+    sp = torch.gather(pos, -2, order[..., None].expand(pos.shape))
     sz, minv, wm, om = _device.const(_entity_table(cfg), pos)[:, order]  # each [B, E]
     dx = sp[:, :, None, 0] - sp[:, None, :, 0]  # [B, E, E] in sorted order
     dy = sp[:, :, None, 1] - sp[:, None, :, 1]
@@ -99,27 +96,94 @@ def collision_forces_culled_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Ten
     return torch.empty_like(f).scatter_(-2, order[..., None].expand(f.shape), f)
 
 
-def tile_pairs_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
-    """[B] int64: the tile pairs (row tile, column tile) of 32 sorted
-    entities whose boxes are within the cutoff, the ones K8 evaluates."""
-    sp = _sorted(pos, morton_order(pos)).float()
-    B, E, _ = sp.shape
-    T = -(-E // TILE)
-    # pad with the last sorted entity: the last tile's box does not grow
-    sp = torch.cat([sp, sp[:, -1:].expand(B, T * TILE - E, 2)], 1).reshape(B, T, TILE, 2)
-    lo, hi = sp.amin(2), sp.amax(2)  # [B, T, 2]
-    c = torch.tensor(cutoff(cfg), dtype=torch.float32, device=pos.device)
-    near = ((lo[:, None, :] <= hi[:, :, None] + c) & (hi[:, None, :] >= lo[:, :, None] - c)).all(-1)
-    return near.sum((1, 2))
+def _cell_width(cfg: WorldCfg) -> float:
+    """The least width of a cell of K8's grid: the cutoff with a margin of
+    2⁻¹⁰ for the rounding of the cell index (the source note's proof)."""
+    return cutoff(cfg) * (1.0 + 2.0**-10)
+
+
+def _smem_bytes(E: int) -> int:
+    """The kernel's shared memory (``pairforce_cull_smem_bytes`` in the
+    source): 12 words an entity padded to 32 (P, Q, slot → entity, entity →
+    cell; the cell table of ``2·Ep + 1`` words) and 128 words of scratch."""
+    Ep = 32 * -(-E // 32)
+    return 4 * (12 * Ep + 1 + 128)
+
+
+# Shared memory a block may use on the H100, opted in beyond 48 KB.
+_SMEM_MAX = 232448
+# Largest entity count whose grid and sorted entities fit: 4800.
+MAX_ENTITIES = 32 * ((_SMEM_MAX - 4 * 129) // (4 * 12 * 32))
+
+
+def grid_cells_plain(pos: torch.Tensor, cfg: WorldCfg):
+    """Each entity's cell in K8's per-env grid, in the kernel's float32
+    arithmetic: pos [B, E, 2] → (cell [B, E] int64, ``row · gx + column``,
+    −1 where the entity does not collide; dims [B, 2] int64, (gx, gy)).
+
+    The grid lies over the box of the env's colliding entities (a NaN
+    coordinate left out of the box); ``g = floor(extent / width)`` cells an
+    axis, at least 1 and at most ``MAX_AXIS_CELLS``, with width
+    :func:`_cell_width`; while ``gx · gy`` exceeds ``2·Ep`` the axis with
+    more cells halves its count (rounding up).  An entity's column is
+    ``(x − lo) · (gx / extent)`` clamped into ``[0, gx − 1]`` (a NaN to 0) and
+    truncated; its row likewise.  Every quotient is a division by a tensor,
+    as the kernel's ``rn_div``."""
+    p = pos.float()
+    E = p.shape[1]
+    collide = torch.as_tensor(np.asarray(cfg.collide, bool), device=p.device)
+    width = torch.tensor(_cell_width(cfg), dtype=torch.float32, device=p.device)
+    lo, extent, g = [], [], []
+    for v in (p[..., 0], p[..., 1]):
+        keep = collide & ~torch.isnan(v)
+        lo.append(torch.where(keep, v, torch.inf).amin(-1))
+        extent.append(torch.where(keep, v, -torch.inf).amax(-1) - lo[-1])
+        n = torch.floor(extent[-1] / width)
+        g.append(torch.where(n >= 1, n.clamp(max=MAX_AXIS_CELLS), 1.0).long())
+    gx, gy = g
+    cap = 2 * 32 * -(-E // 32)
+    while bool((big := gx * gy > cap).any()):
+        halve_x = big & (gx >= gy)
+        gx, gy = torch.where(halve_x, (gx + 1) // 2, gx), torch.where(big & ~halve_x, (gy + 1) // 2, gy)
+    col, row = (_axis_index(p[..., a], lo[a], extent[a], n) for a, n in ((0, gx), (1, gy)))
+    cell = torch.where(collide, row * gx[:, None] + col, -1)
+    return cell, torch.stack([gx, gy], -1)
+
+
+def _axis_index(v, lo, extent, g):
+    """The kernel's axis_index: (v − lo) · (g / extent) clamped into
+    [0, g − 1] (a NaN to 0) and truncated."""
+    u = (v - lo[:, None]) * (g.float() / extent)[:, None]
+    u = torch.where(u >= 0, u, 0.0)
+    return torch.minimum(u, (g - 1).float()[:, None]).long()
+
+
+def candidate_pairs_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
+    """[B] int64: the ordered pairs (i, j) K8 evaluates, i ≠ j, i movable and
+    colliding, j colliding, their cells of :func:`grid_cells_plain` at most
+    one column and one row apart."""
+    cell, dims = grid_cells_plain(pos, cfg)
+    recv = torch.as_tensor(np.asarray(cfg.collide & cfg.movable, bool), device=pos.device)
+    part = torch.as_tensor(np.asarray(cfg.collide, bool), device=pos.device)
+    E = cell.shape[1]
+    ok = recv[:, None] & part[None, :] & ~torch.eye(E, dtype=torch.bool, device=pos.device)
+    out = []
+    for c, g in zip(cell.split(256), dims.split(256)):
+        col, row = c % g[:, :1], c // g[:, :1]
+        near_col = (col[:, :, None] - col[:, None, :]).abs() <= 1
+        near_row = (row[:, :, None] - row[:, None, :]).abs() <= 1
+        out.append((near_col & near_row & ok).sum((1, 2)))
+    return torch.cat(out)
 
 
 def collision_forces_culled(
-    pos: torch.Tensor, cfg: WorldCfg, tiles: Optional[torch.Tensor] = None
+    pos: torch.Tensor, cfg: WorldCfg, pairs: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Contact forces pos [B, E, 2] → [B, E, 2] for any ``cfg`` with
-    ``nan_guard`` (the TPU kernel asserts it too).  On the card, ``tiles``
+    ``nan_guard`` (the TPU kernel asserts it too).  On the card, ``pairs``
     (int32 [B], zeroed by the caller) gains each env's count of evaluated
-    tile pairs."""
+    ordered pairs (:func:`candidate_pairs_plain`).  The card path is one
+    kernel launch: the sort by cell happens inside it."""
     if not cfg.nan_guard:
         raise ValueError("K8 needs nan_guard")
     if not _device.use_kernel(pos):
@@ -133,16 +197,15 @@ def collision_forces_culled(
         raise ValueError(f"K8: pos has {E} entities, the cfg {cfg.n_entities}")
     if E > MAX_ENTITIES:
         raise ValueError(f"K8 holds at most {MAX_ENTITIES} entities per env, got {E}")
-    if tiles is not None and (tiles.dtype != torch.int32 or tuple(tiles.shape) != (B,)
-                              or tiles.device != pos.device):
-        raise ValueError("K8 takes tiles as an int32 [B] tensor on the card")
-    order = morton_order(pos)
-    ent = _device.const(_entity_table(cfg), pos, torch.float32)
+    if pairs is not None and (pairs.dtype != torch.int32 or tuple(pairs.shape) != (B,)
+                              or pairs.device != pos.device):
+        raise ValueError("K8 takes pairs as an int32 [B] tensor on the card")
+    ent = pairforce._entity_vectors(cfg, pos)
     force = torch.empty_like(pos)
     rc = _build.lib().pairforce_cull_launch(
-        pos.data_ptr(), order.data_ptr(), ent.data_ptr(), force.data_ptr(),
-        None if tiles is None else tiles.data_ptr(), B, E,
-        float(cfg.contact_margin), float(cfg.contact_force), cutoff(cfg),
+        pos.data_ptr(), ent.data_ptr(), force.data_ptr(),
+        None if pairs is None else pairs.data_ptr(), B, E,
+        float(cfg.contact_margin), float(cfg.contact_force), _cell_width(cfg),
         torch.cuda.current_stream(pos.device).cuda_stream,
     )
     _build.check(rc, "pairforce_cull")

@@ -2,7 +2,8 @@
 
 The CUDA kernel ``csrc/pairforce_sym.cu`` replaces the TPU kernel
 ``gym_formation_tpu/ops/pallas/pairforce_sym.py:collision_forces_sym``.
-Its source note says what bounds it on the H100 and how it is laid out.
+Its source note says what bounds it on the H100 and how it is laid out: each
+unordered pair once, by the pair sweep K3 and K6 run.
 
 :func:`collision_forces_sym` is the wrapper: a CUDA tensor launches the
 kernel, a CPU tensor takes :func:`collision_forces_sym_plain`, the same
@@ -20,9 +21,10 @@ from .. import _build
 
 launches = 0
 
-# Largest entity count whose positions fit the kernel's default 48 KB of
-# shared memory (E x 2 floats).
-MAX_ENTITIES = 48 * 1024 // 8
+# The kernel's entity limit: positions and the pair sweep's sums, 6 floats
+# an entity, 144 KB of shared memory at 6144 (opted in beyond 48 KB).
+# physics sends every uniform world to K1 on the ``auto`` selector.
+MAX_ENTITIES = 6144
 
 
 def sym_applicable(cfg: WorldCfg) -> bool:

@@ -41,6 +41,54 @@ def test_k1_matches_plain(dev, E, B):
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
 
 
+def _all_contact(rng, B, N, box):
+    """[B, N, 2] positions in a box of side ``box``, smaller than the contact
+    distance over the square root of 2: every pair is in contact, so every
+    term of every pair sweep is large."""
+    return rng.uniform(0.0, box, (B, N, 2)) - box / 2
+
+
+# K1 runs the pair sweep of K3 and K6 (tiles of 32): 2 is one pair in a
+# diagonal tile; 31, 32, 33 one tile short, exactly, one over; 64 an even
+# count of tiles (the last round from one side only), 65 three; 243 eight
+# tiles, the last of 19; 1500 47 tiles, more than the 32 warps of a block.
+@pytest.mark.parametrize("E", [2, 31, 32, 33, 64, 65, 243, 1500])
+def test_k1_every_pair_in_contact(dev, E):
+    """Every entity within 0.04 of every other (the contact distance is
+    0.06): every pair's term is large, so a pair the sweep skipped or took
+    twice would show far beyond atol = rtol = 1e-3."""
+    cfg = make_world_cfg(E, 0, agent_size=0.03)
+    pos = torch.as_tensor(_all_contact(np.random.RandomState(E), 3, E, 0.04), dtype=torch.float32, device=dev)
+    got = k1.collision_forces_sym(pos, cfg)
+    want = k1.collision_forces_sym_plain(pos, **k1._params(cfg))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
+def test_k1_is_deterministic(dev):
+    """Two launches on the same inputs give the same bits (the pair sweep's
+    sums go in a fixed order): E=243 and E=1500, many pairs in contact."""
+    for E in (243, 1500):
+        cfg = make_world_cfg(E, 0, agent_size=0.03)
+        pos = torch.as_tensor(np.random.RandomState(E).uniform(-0.15, 0.15, (4, E, 2)),
+                              dtype=torch.float32, device=dev)
+        assert torch.equal(k1.collision_forces_sym(pos, cfg), k1.collision_forces_sym(pos, cfg))
+
+
+@pytest.mark.parametrize("E", [3000, k1.MAX_ENTITIES])
+def test_k1_beyond_48kb_of_shared_memory(dev, E):
+    """E=3000 takes 72 KB of shared memory and MAX_ENTITIES, 6144, 144 KB:
+    both past the default 48 KB, opted in by the launcher."""
+    cfg = make_world_cfg(E, 0, agent_size=0.03)
+    pos = torch.as_tensor(np.random.RandomState(E).uniform(-1.0, 1.0, (2, E, 2)), dtype=torch.float32, device=dev)
+    before = k1.launches
+    got = k1.collision_forces_sym(pos, cfg)
+    assert k1.launches == before + 1
+    want = k1.collision_forces_sym_plain(pos, **k1._params(cfg))
+    assert torch.isfinite(got).all() and float(want.abs().max()) > 1.0
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-3)
+
+
 @pytest.mark.parametrize("N,B", [(1, 2), (5, 3), (100, 9), (1100, 2)])
 def test_k2_matches_plain(dev, N, B):
     rng = np.random.RandomState(N)
@@ -135,13 +183,6 @@ def test_k3_reads_a_strided_agent_slice(dev):
     want = k3.fused_hd_step(x["apos"], x["avel"], x["aforce"], x["ishape"], cfg, thresh=0.03)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
-
-
-def _all_contact(rng, B, N, box):
-    """[B, N, 2] positions in a box of side ``box``, smaller than the contact
-    distance over the square root of 2: every pair is in contact, so every
-    term of every pair sweep is large."""
-    return rng.uniform(0.0, box, (B, N, 2)) - box / 2
 
 
 # The pair sweep takes tiles of 32: 31, 32 and 33 agents fill one tile short,
@@ -497,25 +538,136 @@ def test_k7_matches_plain_and_k2(dev, N, B, scale):
     assert torch.equal(nc, nc2)
 
 
-# spread: dense (about 250 entities a unit square, the hd_obs density at
-# N=243) and spread out (most tile pairs culled)
-@pytest.mark.parametrize("E,B,spread", [(1, 2, 0.5), (33, 3, 0.5), (33, 3, 3.0), (246, 5, 0.5),
-                                        (246, 5, 3.0), (1500, 2, 1.25), (1500, 2, 7.5)])
-def test_k8_matches_plain_and_k6(dev, E, B, spread):
-    """Against its plain version (1e-3) and K6 (atol 2e-4, rtol 1e-4: the
-    sums' order differs); the count of evaluated tile pairs equals the plain
-    box test's."""
+def _near_pairs(pos, cfg):
+    """[B] int64: the ordered pairs K8's function needs, i != j, i movable
+    and colliding, j colliding, at most the cutoff apart."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    recv = torch.as_tensor(cfg.collide & cfg.movable, device=pos.device)
+    part = torch.as_tensor(cfg.collide, device=pos.device)
+    E = pos.shape[1]
+    ok = recv[:, None] & part[None, :] & ~torch.eye(E, dtype=torch.bool, device=pos.device)
+    dist = lambda p: torch.cdist(p.double(), p.double(), compute_mode="donot_use_mm_for_euclid_dist")
+    return torch.cat([(ok & (dist(p) <= k8.cutoff(cfg))).sum((1, 2)) for p in pos.split(64)])
+
+
+def _k8_check(pos, cfg):
+    """K8 against its plain version (1e-3) and K6 (atol 2e-4, rtol 1e-4:
+    the sums' order differs); its count of evaluated pairs equals
+    candidate_pairs_plain's and is at least the near pairs.  Returns the
+    forces and the count."""
     from gym_formation_tpu_torch.ops.kernels import pairforce as k6
     from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
 
+    pairs = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
+    before = k8.launches
+    got = k8.collision_forces_culled(pos, cfg, pairs=pairs)
+    assert k8.launches == before + 1
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, k8.collision_forces_culled_plain(pos, cfg), atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(got, k6.collision_forces_batched(pos, cfg), atol=2e-4, rtol=1e-4)
+    assert torch.equal(pairs.long(), k8.candidate_pairs_plain(pos, cfg))
+    assert bool((pairs.long() >= _near_pairs(pos, cfg)).all())
+    return got, pairs
+
+
+# spread: dense (about 250 entities a unit square, the hd_obs density at
+# N=243: a grid of 2 x 2 cells) and spread out (most cell pairs culled)
+@pytest.mark.parametrize("E,B,spread", [(1, 2, 0.5), (33, 3, 0.5), (33, 3, 3.0), (246, 5, 0.5),
+                                        (246, 5, 3.0), (1500, 2, 1.25), (1500, 2, 7.5)])
+def test_k8_matches_plain_and_k6(dev, E, B, spread):
+    """The mixed world (two sizes, heavy, immovable and non-colliding
+    blocks): K8 against its plain version and K6; its evaluated pairs
+    against the plain grid's candidates."""
     cfg = _mixed_cfg(E, E + 1)
     pos = torch.as_tensor(np.random.RandomState(E).uniform(-spread, spread, (B, E, 2)),
                           dtype=torch.float32, device=dev)
-    tiles = torch.zeros(B, dtype=torch.int32, device=dev)
-    got = k8.collision_forces_culled(pos, cfg, tiles=tiles)
-    torch.testing.assert_close(got, k8.collision_forces_culled_plain(pos, cfg), atol=1e-3, rtol=1e-3)
-    torch.testing.assert_close(got, k6.collision_forces_batched(pos, cfg), atol=2e-4, rtol=1e-4)
-    assert torch.equal(tiles.long(), k8.tile_pairs_plain(pos, cfg))
+    _k8_check(pos, cfg)
+
+
+def test_k8_on_a_lattice(dev):
+    """61 x 61 entities at 0.9 of the contact distance apart (0.054),
+    jittered, over a world about 20 cutoffs wide (0.164 each), each env's
+    lattice shifted by a fraction of a cell: every contact crosses cell
+    boundaries somewhere."""
+    cfg = make_world_cfg(61 * 61, 0, agent_size=0.03)
+    rng = np.random.RandomState(11)
+    g = (np.arange(61) - 30) * 0.054
+    lat = np.stack(np.meshgrid(g, g, indexing="ij"), -1).reshape(-1, 2)
+    pos = lat[None] + rng.uniform(-0.005, 0.005, (3, 61 * 61, 2)) + rng.uniform(0, 0.2, (3, 1, 2))
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    got, pairs = _k8_check(pos, cfg)
+    assert float(got.abs().max()) > 1.0
+    assert int(pairs.max()) < 61 * 61 * (61 * 61 - 1) // 20  # most pairs skipped
+
+
+def test_k8_is_deterministic(dev):
+    """Two launches on the same inputs give the same forces and counts,
+    bit for bit: the grid and the sorted order follow from the positions
+    alone.  The mixed world, E=246 and E=1500, several cells an axis."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    for E, spread in ((246, 2.0), (1500, 2.5)):
+        cfg = _mixed_cfg(E, E)
+        pos = torch.as_tensor(np.random.RandomState(E).uniform(-spread, spread, (4, E, 2)),
+                              dtype=torch.float32, device=dev)
+        runs = []
+        for _ in range(2):
+            pairs = torch.zeros(4, dtype=torch.int32, device=dev)
+            runs.append((k8.collision_forces_culled(pos, cfg, pairs=pairs), pairs))
+        assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+def test_k8_at_max_entities(dev):
+    """MAX_ENTITIES (4800) of the mixed world: about 225 KB of shared
+    memory, opted in by the launcher."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    E = k8.MAX_ENTITIES
+    cfg = _mixed_cfg(E, 3)
+    pos = torch.as_tensor(np.random.RandomState(3).uniform(-3.0, 3.0, (2, E, 2)), dtype=torch.float32, device=dev)
+    _k8_check(pos, cfg)
+
+
+def test_k8_survives_non_finite_entities(dev):
+    """A NaN entity in env 0 and an infinite one in env 1 index the grid
+    inside its bounds: the launch completes, and env 2, all finite, equals
+    the plain version."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    cfg = _mixed_cfg(246, 5)
+    pos = np.random.RandomState(5).uniform(-2.0, 2.0, (3, 246, 2)).astype(np.float32)
+    pos[0, 7] = np.nan
+    pos[1, 9, 0] = np.inf
+    pos[1, 10, 1] = -np.inf
+    pos = torch.as_tensor(pos, device=dev)
+    pairs = torch.zeros(3, dtype=torch.int32, device=dev)
+    got = k8.collision_forces_culled(pos, cfg, pairs=pairs)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[2], k8.collision_forces_culled_plain(pos[2:], cfg)[0], atol=1e-3, rtol=1e-3)
+    assert int(pairs[2]) == int(k8.candidate_pairs_plain(pos[2:], cfg)[0])
+
+
+def test_k8_far_pairs_add_exact_zeros(dev):
+    """contact_coef on the card: two entities of size 0.03 (k = 1e-3) at a
+    depth w = -m k for m from 30 to 150 and at 1.5 cutoffs, one env each,
+    both in one cell, so K8 evaluates the pair (2 ordered pairs an env).
+    Below -25 in the exponent 1 + 2^x rounds to 1 and lg2.approx(1) is 0;
+    below -126 ex2.approx.ftz is 0: the force is exactly 0 at w = -104 k,
+    the cutoff, and beyond, and already from w = -30 k."""
+    from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+
+    cfg = make_world_cfg(2, 0, agent_size=0.03)
+    c = k8.cutoff(cfg)
+    d = [0.06 + m * 1e-3 for m in (30, 60, 87.4, 104, 105, 150)] + [1.5 * c]
+    pos = np.zeros((len(d), 2, 2), np.float32)
+    pos[:, 1, 0] = d
+    pos[:, :, 1] = 0.37
+    pos = torch.as_tensor(pos, device=dev)
+    pairs = torch.zeros(len(d), dtype=torch.int32, device=dev)
+    got = k8.collision_forces_culled(pos, cfg, pairs=pairs)
+    assert bool((pairs == 2).all())
+    assert bool((got == 0).all()), got
 
 
 def test_k8_and_k6_dense_errors_are_rounding(dev):
@@ -571,9 +723,12 @@ def test_k6_k7_k8_wrappers_reject_bad_inputs(dev):
             fn(torch.zeros(2, 16, 2, device=dev)[:, ::2], cfg)
         with pytest.raises(ValueError, match="entities"):
             fn(torch.zeros(2, 9, 2, device=dev), cfg)
-    big = _mixed_cfg(k6.MAX_ENTITIES + 1, 0)
-    with pytest.raises(ValueError, match="at most"):
-        k6.collision_forces_batched(torch.zeros(1, big.n_entities, 2, device=dev), big)
+    for mod, fn in ((k6, k6.collision_forces_batched), (k8, k8.collision_forces_culled)):
+        big = _mixed_cfg(mod.MAX_ENTITIES + 1, 0)
+        with pytest.raises(ValueError, match="at most"):
+            fn(torch.zeros(1, big.n_entities, 2, device=dev), big)
+    with pytest.raises(ValueError, match="pairs"):
+        k8.collision_forces_culled(pos, cfg, pairs=torch.zeros(2, dtype=torch.int64, device=dev))
     with pytest.raises(ValueError, match="one shape"):
         k7.hd_reward_stats_batched(pos, torch.zeros(2, 7, 2, device=dev), thresh=0.03)
 

@@ -191,6 +191,21 @@ def test_unsupported_config_on_card_raises(monkeypatch):
         tphys.collision_forces(pos, unguarded)
 
 
+def test_k1_wrapper_admits_its_envelope(monkeypatch):
+    """On a (simulated) card every uniform world up to MAX_ENTITIES, 6144
+    (6 floats an entity in tiles of 32: 144 KB of the H100's 227 KB a
+    block), reaches K1's launcher, through the physics' auto selector too;
+    beyond it the wrapper raises."""
+    calls = fake_card(monkeypatch)
+    top = pairforce_sym.MAX_ENTITIES
+    assert top >= 6144 and 6 * 4 * 32 * -(-top // 32) <= 232448
+    for E in (2, 243, 3000, top):
+        tphys.collision_forces(torch.zeros(1, E, 2), make_world_cfg(E, 0, agent_size=0.03))
+    assert calls == ["pairforce_sym_launch"] * 4
+    with pytest.raises(ValueError, match="at most"):
+        pairforce_sym.collision_forces_sym(torch.zeros(1, top + 1, 2), make_world_cfg(top + 1, 0))
+
+
 def test_use_kernel_rule():
     assert _device.use_kernel(torch.zeros(1)) is False
     with pytest.raises(ValueError):
