@@ -1328,8 +1328,11 @@ def main() -> int:
         "fused_rollout": bound(B * (soa_bytes(n3) + 4), B * N3_LENGTH * env_step_ops(n3)),
         "fused_collect": bound(B * (soa_bytes(3) + 4 * 25 * (6 * 3 * 3 + 3 * 3 + 3)),
                                B * 25 * (3 * actor(3) + critic(3) + env_step_ops(3))),
-        # forward and the weight gradients: twice the forward, a lower bound
-        "fused_ppo_grad": bound(4 * M * (6 * 3 * 3 + 3 * 3 + 3), 2 * M * (3 * actor(3) + critic(3))),
+        # the forward, the weight gradients (as many multiply-adds as the
+        # forward) and the input gradients g2 = gh W3^T, g1 = g2 W2^T
+        "fused_ppo_grad": bound(4 * M * (6 * 3 * 3 + 3 * 3 + 3),
+                                M * (3 * (2 * actor(3) + mlp_flops((64, 64, 2)))
+                                     + 2 * critic(3) + mlp_flops((64, 64, 1)))),
         "pairforce": bound(16 * B * E6 + 16 * E6, B * pair_ops(E6 * (E6 - 1))),
         "reward": bound(stat_bytes, B * stat_ops(N)),
         "pairforce_cull": bound(16 * B * N + 16 * N, pair_ops(sel["k8"]["near"])),

@@ -30,7 +30,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signature of every launcher in csrc/: pointers and the stream as void*,
-# so ctypes passes 64-bit values.  Each returns cudaGetLastError().
+# so ctypes passes 64-bit values.  Each launcher returns cudaGetLastError().
 SIGNATURES = {
     # pos, force, B, E, k, invk, cf, dmin, stream
     "pairforce_sym_launch": (_P, _P, _I, _I, _F, _F, _F, _F, _P),
@@ -38,8 +38,9 @@ SIGNATURES = {
     "pairforce_launch": (_P, _P, _P, _I, _I, _F, _F, _P),
     # pos, ent, force, pairs, B, E, k, cf, cell width, stream
     "pairforce_cull_launch": (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P),
-    # apos, ishape, mask, haus_fb, ncoll_fb, haus, ncoll, B, N, thresh2, stream
-    "reward_sym_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # apos, ishape, mask, haus_fb, ncoll_fb, haus, ncoll, B, N, R, smem,
+    # thresh2, stream
+    "reward_sym_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # apos, ishape, haus2, ncoll, B, N, thresh2, stream
     "reward_launch": (_P, _P, _P, _P, _I, _I, _F, _P),
     # apos, avel, aforce, ishape, ivel, npos, nvel, haus, ncoll, B, N,
@@ -54,11 +55,11 @@ SIGNATURES = {
     # ep_len, seed, sens, dmin, thresh2, cf, margin, invk, keep, dt, stream
     "fused_collect_launch": (_P,) * 29 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
     # obs, act, lpo, adv, vold, tgt, 7 actor + 6 critic operands, part_a,
-    # part_c, out_a, out_c, Ma, M, DO, DC, A, Ga, Gc, clip_eps, huber_delta,
+    # part_c, Ma, M, DO, DC, A, Ga, Gc, Sa, Sc, clip_eps, huber_delta,
     # value_coef, inv_ma, inv_mc, stream
-    "fused_ppo_grad_launch": (_P,) * 23 + (_I,) * 7 + (_F,) * 5 + (_P,),
-    # DO, DC, A -> dynamic shared memory bytes of K9's first kernel
-    "fused_ppo_grad_smem_bytes": (_I,) * 3,
+    "fused_ppo_grad_launch": (_P,) * 21 + (_I,) * 9 + (_F,) * 5 + (_P,),
+    # K (a role's input width), actor, out: stages -> K9's blocks an SM
+    "fused_ppo_grad_plan": (_I, _I, ctypes.POINTER(_I)),
 }
 
 _lib = None

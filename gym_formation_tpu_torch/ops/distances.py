@@ -11,10 +11,12 @@ import torch
 
 
 def pairwise_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Euclidean distance matrix between point sets a [..., N, P] and
-    b [..., M, P] → [..., N, M]."""
+    """Euclidean distance matrix between point sets in the plane a [..., N, 2]
+    and b [..., M, 2] → [..., N, M].  By ``torch.hypot``, not ``torch.sqrt``,
+    whose CPU kernel calls MKL's vector math library: see
+    ``ops/kernels/pairforce.py: collision_forces_batched_plain``."""
     delta = a[..., :, None, :] - b[..., None, :, :]
-    return torch.sqrt((delta * delta).sum(-1))
+    return torch.hypot(delta[..., 0], delta[..., 1])
 
 
 def hausdorff(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

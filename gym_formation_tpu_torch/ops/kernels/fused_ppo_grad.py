@@ -13,14 +13,18 @@ adds ``-entropy_coef`` per dim and chains ``soft_bound``.
 :func:`fused_ppo_grads` is the wrapper: a CUDA tensor launches the kernels,
 a CPU tensor takes :func:`fused_ppo_grads_plain`, the same backward in
 PyTorch operations.  ``launches`` counts kernel launches (one per call: the
-gradient kernel and its fixed-order sum over blocks).
+actor's and the critic's gradient kernels, each with its fixed-order sum
+over blocks).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 from ... import _device
@@ -31,8 +35,47 @@ launches = 0
 HIDDEN = 64
 _LOG_2PI = math.log(2.0 * math.pi)
 _ROWS = 64  # rows per chunk of the kernel
-_CHUNKS_PER_BLOCK = 12
-_SMEM_MAX = 232448  # bytes of shared memory a block may use on the H100
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(K: int, actor: bool, device: int) -> Tuple[int, int]:
+    """(resident blocks an SM, stages of the input copies) of one role's
+    kernel at rows K floats wide on card ``device``, from the launcher
+    (``fused_ppo_grad_plan``: the occupancy the compiled kernel gets at its
+    shared memory).  0 blocks: the rows do not fit the card's shared memory."""
+    stages = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        per_sm = _build.lib().fused_ppo_grad_plan(K, int(actor), ctypes.byref(stages))
+    if per_sm < 0:
+        raise RuntimeError("fused_ppo_grad_plan: a CUDA error while sizing K9's launch")
+    return per_sm, stages.value
+
+
+def _grid(rows: int, per_sm: int, sms: int) -> int:
+    """Blocks of one role's launch: one persistent wave (``per_sm`` blocks
+    on each of ``sms`` SMs), and no block without a chunk."""
+    return max(1, min(-(-rows // _ROWS), sms * per_sm))
+
+
+def chunk_rows_plain(rows: int, G: int):
+    """The kernel's chunk-to-block assignment, in numpy: [rows] int64, the
+    block that takes each row (block b takes the 64-row chunks b, b + G,
+    ...).  Returns (owner, visits), visits counting how often a row is
+    taken."""
+    owner = np.full(rows, -1, np.int64)
+    visits = np.zeros(rows, np.int64)
+    for b in range(G):
+        c = b
+        while c * _ROWS < rows:
+            r = np.arange(c * _ROWS, min(rows, (c + 1) * _ROWS))
+            owner[r] = b
+            visits[r] += 1
+            c += G
+    return owner, visits
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _rows(data: Dict[str, torch.Tensor], n_agents: int, act_dim: int):
@@ -166,23 +209,25 @@ def fused_ppo_grads(
                 shape is not None and tuple(x.shape) != shape):
             raise ValueError(f"K9 takes a contiguous float32 {name}" + (f" of shape {shape}" if shape else "")
                              + f" on {dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
-    lib = _build.lib()
-    smem = lib.fused_ppo_grad_smem_bytes(do, dc, A)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"K9 needs {smem} bytes of shared memory at n={N} (at most {_SMEM_MAX})")
+    if actor_ops[0].data_ptr() % 16 or critic_ops[0].data_ptr() % 16:
+        raise ValueError("K9 reads W1 in 16-byte loads: it takes W1 aligned to 16 bytes")
+    (pa, Sa), (pc, Sc) = _plan(do, True, dev.index), _plan(dc, False, dev.index)
+    if not (pa and pc):
+        raise ValueError(f"K9's blocks for rows of {do} (actor) and {dc} (critic) floats at n={N} do not "
+                         f"fit the card's shared memory")
     Pa = do * H + H + H * H + H + H * A + A + A + 2
     Pc = dc * H + H + H * H + H + H + 1 + 1
-    Ga = max(1, -(-Ma // (_ROWS * _CHUNKS_PER_BLOCK)))
-    Gc = max(1, -(-M // (_ROWS * _CHUNKS_PER_BLOCK)))
-    part_a = torch.empty((Ga, Pa), dtype=torch.float32, device=dev)
-    part_c = torch.empty((Gc, Pc), dtype=torch.float32, device=dev)
-    out_a = torch.empty(Pa, dtype=torch.float32, device=dev)
-    out_c = torch.empty(Pc, dtype=torch.float32, device=dev)
-    rc = lib.fused_ppo_grad_launch(
+    sms = _sm_count(dev)
+    Ga, Gc = _grid(Ma, pa, sms), _grid(M, pc, sms)
+    # each block's slice, then their sum in the last row
+    part_a = torch.empty((Ga + 1, Pa), dtype=torch.float32, device=dev)
+    part_c = torch.empty((Gc + 1, Pc), dtype=torch.float32, device=dev)
+    out_a, out_c = part_a[Ga], part_c[Gc]
+    rc = _build.lib().fused_ppo_grad_launch(
         *(r[k].data_ptr() for k in ("xa", "act", "lpo", "adv", "vold", "tgt")),
         *(w.data_ptr() for w in actor_ops), *(w.data_ptr() for w in critic_ops),
-        part_a.data_ptr(), part_c.data_ptr(), out_a.data_ptr(), out_c.data_ptr(),
-        Ma, M, do, dc, A, Ga, Gc, float(clip_eps), float(huber_delta), float(value_coef),
+        part_a.data_ptr(), part_c.data_ptr(),
+        Ma, M, do, dc, A, Ga, Gc, Sa, Sc, float(clip_eps), float(huber_delta), float(value_coef),
         1.0 / Ma, 1.0 / M, torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(rc, "fused_ppo_grad")

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ... import _device
 from ...core.types import WorldCfg
@@ -58,6 +59,13 @@ def _pair_tables(cfg: WorldCfg):
     return pairc, size[:, None] + size[None, :]
 
 
+def softplus(z: torch.Tensor) -> torch.Tensor:
+    """The stable softplus ``logaddexp(0, z) = max(z, 0) + log1p(exp(-|z|))``,
+    the exponential and log1p by ATen's own softplus kernel (see
+    :func:`collision_forces_batched_plain` for why not ``torch.exp``)."""
+    return z.clamp_min(0.0) + F.softplus(-z.abs())
+
+
 def collision_forces_batched_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
     """Plain PyTorch version of K6: pos [B, E, 2] → force [B, E, 2], in the
     dtype of ``pos``.  Materializes the [B, E, E] pair planes.
@@ -68,17 +76,25 @@ def collision_forces_batched_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Te
 
     ``eps`` is 1e-12 under ``nan_guard`` and 0 otherwise (the original's
     0/0 NaN at zero distance).  This is also the physics' plain path for
-    worlds that no kernel covers (``nan_guard=False``)."""
+    worlds that no kernel covers (``nan_guard=False``).
+
+    The distance is ``torch.hypot`` and the softplus :func:`softplus`, never
+    ``torch.sqrt`` or ``torch.exp``: on the CPU those two call MKL's vector
+    math library from each intra-op thread, and the first such call of a
+    process, when it is split over the threads, can compute one thread's
+    share with a less accurate routine (about 2⁻¹² relative; MKL's lazy
+    set-up races).  Amplified by ``1/k``, that moved forces by 3e-3 now and
+    then.  ``hypot`` and ``softplus`` are ATen's own vectorised kernels and
+    give the same bits on every call."""
     pairc, dist_min = _pair_tables(cfg)
     pairc, dist_min = _device.const(pairc, pos), _device.const(dist_min, pos)
     eps = 1e-12 if cfg.nan_guard else 0.0
     dx = pos[..., :, None, 0] - pos[..., None, :, 0]  # [B, E, E]
     dy = pos[..., :, None, 1] - pos[..., None, :, 1]
-    dist = torch.sqrt(dx * dx + dy * dy)
+    dist = torch.hypot(dx, dy)
     k = cfg.contact_margin
     z = -(dist - dist_min) / k
-    # stable softplus: logaddexp(0, z) = max(z, 0) + log1p(exp(-|z|))
-    pen = (z.clamp_min(0.0) + torch.log1p(torch.exp(-z.abs()))) * k
+    pen = softplus(z) * k
     # where, not a product, off the pair set: unguarded, the diagonal's 0/0
     # would otherwise leak in as 0 · NaN
     coef = torch.where(pairc != 0, pairc * (cfg.contact_force * pen / dist.clamp_min(eps)), 0.0)

@@ -86,10 +86,10 @@ def collision_forces_culled_plain(pos: torch.Tensor, cfg: WorldCfg) -> torch.Ten
     sz, minv, wm, om = _device.const(_entity_table(cfg), pos)[:, order]  # each [B, E]
     dx = sp[:, :, None, 0] - sp[:, None, :, 0]  # [B, E, E] in sorted order
     dy = sp[:, :, None, 1] - sp[:, None, :, 1]
-    dist = torch.sqrt(dx * dx + dy * dy)
+    dist = torch.hypot(dx, dy)  # not sqrt, nor exp below: see K6's plain version
     k = cfg.contact_margin
     z = -(dist - (sz[:, :, None] + sz[:, None, :])) / k
-    pen = (z.clamp_min(0.0) + torch.log1p(torch.exp(-z.abs()))) * k
+    pen = pairforce.softplus(z) * k
     ratio = wm[:, None, :] * minv[:, :, None] + om[:, None, :]
     coef = ratio * (cfg.contact_force * pen / dist.clamp_min(1e-12))
     f = torch.stack([(coef * dx).sum(-1), (coef * dy).sum(-1)], dim=-1) * (1.0 - om)[..., None]

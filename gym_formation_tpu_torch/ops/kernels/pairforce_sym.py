@@ -18,6 +18,7 @@ import torch
 from ... import _device
 from ...core.types import WorldCfg
 from .. import _build
+from .pairforce import softplus
 
 launches = 0
 
@@ -58,8 +59,7 @@ def collision_forces_sym_plain(
     s = (dx * dx + dy * dy).clamp_min(1e-24)  # nan_guard
     r = torch.rsqrt(s)
     z = (dmin - s * r) * invk
-    # stable softplus: logaddexp(0, z) = max(z, 0) + log1p(exp(-|z|))
-    pen = (z.clamp_min(0.0) + torch.log1p(torch.exp(-z.abs()))) * k
+    pen = softplus(z) * k  # not torch.exp: see K6's plain version
     c = (cf * pen) * r
     c = c.masked_fill(torch.eye(E, dtype=torch.bool, device=pos.device), 0.0)
     return torch.stack([(c * dx).sum(-1), (c * dy).sum(-1)], dim=-1)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ... import _device
@@ -20,9 +21,60 @@ from .. import _build
 
 launches = 0
 
-# Largest agent count whose three point sets fit the kernel's default 48 KB
-# of shared memory ((6 N + 32) floats).
-MAX_AGENTS = (48 * 1024 // 4 - 32) // 6
+_SMEM_MAX = 232448  # bytes of shared memory a block may use on the H100, opted in beyond 48 KB
+
+
+def tile_side(N: int) -> int:
+    """R, the side of a thread's register tile at N agents, passed to the
+    launcher of ``csrc/reward_sym.cu``: the smallest of 2, 4, 8, 16 whose
+    super-tile of 16 R agents holds N, else 16."""
+    return next((R for R in (2, 4, 8) if 16 * R >= N), 16)
+
+
+def _padded(N: int) -> int:
+    S = 16 * tile_side(N)
+    return S * -(-N // S)
+
+
+def _smem_bytes(N: int) -> int:
+    """The kernel's shared memory, passed to its launcher: 9 words an agent
+    (raw, centred, shape; row and column minima; count), padded to a
+    multiple of the super-tile, and 32 of scratch."""
+    return 4 * (9 * _padded(N) + 32)
+
+
+# Largest agent count whose padded tiles fit the card's shared memory: 6400.
+MAX_AGENTS = 256 * ((_SMEM_MAX // 4 - 32) // (9 * 256))
+
+
+def tile_schedule_plain(N: int):
+    """K2's schedule at N agents, in numpy: (dist [N, N], pair [N, N]) int64,
+    how many times the kernel computes the distance of (agent i, vertex j),
+    and how many times it tests the unordered pair {i, j} (at [min, max]).
+
+    With R = :func:`tile_side` (N) and super-tiles of S = 16 R, thread
+    (a, b) of a super-tile takes agents ``a + 16 k`` and vertices (or
+    partner agents) ``b + 16 m``, k, m < R; the counts take super-tiles
+    P <= Q, in P == Q the pairs m > k, and m == k where a < b
+    (``hd_stats_tiles`` in ``csrc/common.cuh``).  Pads (indices >= N) are
+    left out."""
+    R = tile_side(N)
+    S, T = 16 * R, _padded(N) // (16 * R)
+    a, b = (x.ravel() for x in np.meshgrid(np.arange(16), np.arange(16), indexing="ij"))
+    k, m = (x.ravel() for x in np.meshgrid(np.arange(R), np.arange(R), indexing="ij"))
+    a, b, k, m = a[:, None], b[:, None], k[None, :], m[None, :]
+    dist = np.zeros(N * N, np.int64)
+    pair = np.zeros(N * N, np.int64)
+    for P in range(T):
+        for Q in range(T):
+            i, j = P * S + a + 16 * k, Q * S + b + 16 * m
+            ok = (i < N) & (j < N)
+            dist += np.bincount((i * N + j)[ok], minlength=N * N)
+            if P <= Q:
+                take = ok & ((P < Q) | (m > k) | ((m == k) & (a < b)))
+                lo, hi = np.minimum(i, j)[take], np.maximum(i, j)[take]
+                pair += np.bincount(lo * N + hi, minlength=N * N)
+    return dist.reshape(N, N), pair.reshape(N, N)
 
 
 def hd_reward_stats_sym_plain(
@@ -102,7 +154,7 @@ def hd_reward_stats_sym(
     ncoll = torch.empty(B, N, dtype=torch.float32, device=apos.device)
     rc = _build.lib().reward_sym_launch(
         apos.data_ptr(), ishape.data_ptr(), *ptrs, haus.data_ptr(), ncoll.data_ptr(),
-        B, N, float(thresh) * float(thresh),
+        B, N, tile_side(N), _smem_bytes(N), float(thresh) * float(thresh),
         torch.cuda.current_stream(apos.device).cuda_stream,
     )
     _build.check(rc, "reward_sym")

@@ -100,6 +100,96 @@ def test_k2_matches_plain(dev, N, B):
     assert torch.equal(nc, nc_p)
 
 
+# K2 takes super-tiles of 256 agents, 16 x 16 a thread: 1 and 2 agents, one
+# tile of 16 short, exactly and one over (31, 32, 33), 64, 65, 243 (pads of
+# 13), 1100 (five super-tiles, the last ragged).
+K2_SIZES = [1, 2, 31, 32, 33, 64, 65, 243, 1100]
+
+
+@pytest.mark.parametrize("N", K2_SIZES)
+def test_k2_every_pair_in_contact(dev, N):
+    """Every agent within 0.02 of every other (thresh 0.03): every count is
+    N − 1, so a pair the tiles skipped or took twice would show."""
+    rng = np.random.RandomState(N)
+    apos = torch.as_tensor(_all_contact(rng, 3, N, 0.02), dtype=torch.float32, device=dev)
+    ishape = torch.as_tensor(rng.uniform(-1, 1, (3, N, 2)), dtype=torch.float32, device=dev)
+    h, nc = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+    h_p, nc_p = k2.hd_reward_stats_sym_plain(apos, ishape, thresh=0.03)
+    assert bool((nc == N - 1).all())
+    assert torch.equal(nc, nc_p)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=0)
+
+
+def _on_threshold(N, B):
+    """[B, N, 2] agents on a line 2⁻⁵ apart, so that d² of neighbours is 2⁻¹⁰
+    = thresh² exactly in f32 (not a collision); every third agent moved
+    a quarter of the spacing towards its left neighbour (a collision)."""
+    x = np.arange(N) * 2.0**-5
+    x[::3] -= 2.0**-7
+    x[0] = 0.0
+    pos = np.zeros((B, N, 2))
+    pos[:, :, 0] = x - 2.0
+    pos[:, :, 1] = np.arange(B)[:, None] * 0.5
+    return pos
+
+
+@pytest.mark.parametrize("N", K2_SIZES)
+def test_k2_pairs_on_the_threshold(dev, N):
+    """Neighbours at d² = thresh² exactly do not collide, closer ones do;
+    the counts equal the plain version's bit for bit."""
+    thresh = 2.0**-5
+    apos = torch.as_tensor(_on_threshold(N, 3), dtype=torch.float32, device=dev)
+    ishape = torch.as_tensor(np.random.RandomState(N).uniform(-1, 1, (3, N, 2)), dtype=torch.float32, device=dev)
+    h, nc = k2.hd_reward_stats_sym(apos, ishape, thresh=thresh)
+    h_p, nc_p = k2.hd_reward_stats_sym_plain(apos, ishape, thresh=thresh)
+    assert torch.equal(nc, nc_p)
+    if N >= 4:
+        assert 0 < int(nc.sum()) < 2 * 3 * (N - 1)  # hits, and neighbours on the threshold left out
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=0)
+
+
+def test_k2_at_max_agents(dev):
+    """MAX_AGENTS (6400, at least the 2042 the kernel held before) takes
+    225 KB of shared memory, opted in beyond 48 KB; every pair in contact."""
+    N = k2.MAX_AGENTS
+    assert N >= 2042 and k2._smem_bytes(N) <= 232448
+    rng = np.random.RandomState(1)
+    apos = torch.as_tensor(_all_contact(rng, 1, N, 0.02), dtype=torch.float32, device=dev)
+    ishape = torch.as_tensor(rng.uniform(-1, 1, (1, N, 2)), dtype=torch.float32, device=dev)
+    before = k2.launches
+    h, nc = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+    assert k2.launches == before + 1
+    h_p, nc_p = k2.hd_reward_stats_sym_plain(apos, ishape, thresh=0.03)
+    assert bool((nc == N - 1).all()) and torch.equal(nc, nc_p)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("which", ["all", "none", "alternate"])
+def test_k2_masked_forms(dev, which):
+    N, B = 243, 8
+    x = _k3_inputs(dev, N, B, 6, squeeze=0.05)
+    mask = torch.as_tensor({"all": np.ones(B, bool), "none": np.zeros(B, bool),
+                            "alternate": np.arange(B) % 2 == 0}[which], device=dev)
+    fb = (torch.full((B,), -1.0, device=dev), torch.full((B, N), -2.0, device=dev))
+    got = k2.hd_reward_stats_sym(x["apos"], x["ishape"], thresh=0.03, mask=mask, fallback=fb)
+    want = k2.hd_reward_stats_sym_plain(x["apos"], x["ishape"], thresh=0.03, mask=mask, fallback=fb)
+    torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0][~mask], fb[0][~mask]) and torch.equal(got[1][~mask], fb[1][~mask])
+
+
+def test_k2_is_deterministic(dev):
+    """Two launches give the same bits (the minima and counts are merged by
+    integer atomics, exact in any order): N=243 and 1100, many collisions."""
+    for N in (243, 1100):
+        rng = np.random.RandomState(N)
+        apos = torch.as_tensor(rng.uniform(-0.3, 0.3, (4, N, 2)), dtype=torch.float32, device=dev)
+        ishape = torch.as_tensor(rng.uniform(-1, 1, (4, N, 2)), dtype=torch.float32, device=dev)
+        one = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+        two = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+        assert torch.equal(one[0], two[0]) and torch.equal(one[1], two[1])
+
+
 def test_wrappers_reject_bad_inputs(dev):
     cfg = make_world_cfg(8, 0, agent_size=0.03)
     pos = torch.zeros(2, 8, 2, device=dev)
@@ -356,29 +446,32 @@ def test_k5_matches_plain_across_resets(dev, n, B, squeeze):
         assert bool((rel.norm(dim=-1) < 0.03).any())
 
 
-def _k9_data(dev, num_envs, T=8):
+def _k9_data(dev, num_envs, T=8, n=3):
     from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
 
-    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3),
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=n),
                  MAPPOConfig(rollout_len=T, fused_update=True), num_envs=num_envs, device=dev)
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     ts, es, obs = algo.init(g)
+    collect = algo._collect_fused if algo.fused_collect else algo._collect  # K5 holds n=3 only
     with torch.no_grad():
-        es, obs, traj, _, last = algo._collect_fused(ts, es, obs, g)
+        es, obs, traj, _, last = collect(ts, es, obs, g)
     ts, data = algo._prepare(ts, traj, last)
     return algo, ts, data
 
 
-@pytest.mark.parametrize("num_envs", [37, 512])
-def test_k9_matches_plain_and_autograd(dev, num_envs):
+# n = 5, 6, 7 give the critic rows of 150, 216 and 294 floats: dW1 in
+# groups of 128 rows (the kernel's wide form)
+@pytest.mark.parametrize("num_envs,n", [(37, 3), (512, 3), (64, 5), (32, 6), (16, 7)])
+def test_k9_matches_plain_and_autograd(dev, num_envs, n):
     """Every gradient leaf against the plain version and the learner's
     epoch gradient against autograd of the loss (rtol 2e-3, atol 2e-6, the
     tolerance of tests/test_fused_ppo_grad.py); M = 296 leaves a ragged
     last chunk.  Two runs agree bit for bit."""
     from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
 
-    algo, ts, data = _k9_data(dev, num_envs)
+    algo, ts, data = _k9_data(dev, num_envs, n=n)
     f = lambda t: t.detach().float().contiguous()
     (a1, a2), (c1, c2) = ts.actor.mlp.layers, ts.critic.mlp.layers
     aops = (f(a1.weight.T), f(a1.bias), f(a2.weight.T), f(a2.bias), f(ts.actor.head.weight.T),
@@ -386,13 +479,13 @@ def test_k9_matches_plain_and_autograd(dev, num_envs):
     cops = (f(c1.weight.T), f(c1.bias), f(c2.weight.T), f(c2.bias), f(ts.critic.head.weight.T),
             f(ts.critic.head.bias))
     sub = {k: data[k] for k in ("obs", "action", "logp", "adv", "value", "target")}
-    kw = dict(n_agents=3, act_dim=2, clip_eps=0.2, huber_delta=10.0, value_coef=1.0)
+    kw = dict(n_agents=n, act_dim=2, clip_eps=0.2, huber_delta=10.0, value_coef=1.0)
     got = k9.fused_ppo_grads(sub, aops, cops, **kw)
     want = k9.fused_ppo_grads_plain(sub, aops, cops, **kw)
     for x, y in zip(got[0] + got[1], want[0] + want[1]):
         torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-6)
     M = data["obs"].shape[0]
-    per_row = torch.tensor([3 * M, M, 3 * M], dtype=torch.float32, device=dev)
+    per_row = torch.tensor([n * M, M, n * M], dtype=torch.float32, device=dev)
     torch.testing.assert_close(got[2] / per_row, want[2] / per_row, rtol=2e-3, atol=1e-6)
     again = k9.fused_ppo_grads(sub, aops, cops, **kw)
     assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1], again[0] + again[1]))
@@ -400,6 +493,77 @@ def test_k9_matches_plain_and_autograd(dev, num_envs):
     total, _ = algo._loss(ts, data, ts.value_norm)
     for x, y in zip(grads, torch.autograd.grad(total, ts.params())):
         torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-6)
+
+
+def _k9_synthetic(dev, M, n, A, seed):
+    """K9's operands and a batch made on the card from a seed: networks at
+    their init scale (head gain raised), actions drawn around the actor's
+    mean, old log-probs, values and targets perturbed so that the clips of
+    both losses bind on some rows."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev)
+    do, dc, H = 6 * n, 6 * n * n, 64
+    w = lambda i, o, gain=1.0: (rn(i, o) * gain / i**0.5).contiguous()
+    aops = (w(do, H), 0.1 * rn(H), w(H, H), 0.1 * rn(H), w(H, A, 5.0), 0.1 * rn(A), -0.5 + 0.1 * rn(A))
+    cops = (w(dc, H), 0.1 * rn(H), w(H, H), 0.1 * rn(H), w(H, 1), 0.1 * rn(1))
+    obs = 1.5 * rn(M, n, do)
+    relu = torch.relu
+    mean = relu(relu(obs @ aops[0] + aops[1]) @ aops[2] + aops[3]) @ aops[4] + aops[5]
+    act = mean + aops[6].exp() * rn(M, n, A)
+    z = (act - mean) / aops[6].exp()
+    logp = -0.5 * (z * z).sum(-1) - aops[6].sum() - 0.5 * A * float(np.log(2 * np.pi)) + 0.2 * rn(M, n)
+    value = (relu(relu(obs.reshape(M, -1) @ cops[0] + cops[1]) @ cops[2] + cops[3]) @ cops[4] + cops[5])[:, 0]
+    data = {"obs": obs, "action": act.contiguous(), "logp": logp.contiguous(), "adv": rn(M),
+            "value": value.contiguous(), "target": (value + rn(M)).contiguous()}
+    return data, aops, cops
+
+
+# M = 8 gives 24 actor rows and 8 critic rows: fewer than one chunk a block;
+# 777 and 4097 leave a ragged last chunk; n = 4 widens the critic's rows to
+# 96 (the kernel's widest dW1 tiles), n = 5..8 to 150..384 (dW1 in groups of
+# 128 rows; 8 with M = 64: one critic chunk); A = 1 the
+# one-dimensional policy.
+@pytest.mark.parametrize("M,n,A", [(8, 3, 2), (777, 3, 2), (777, 3, 1), (4097, 4, 2), (1000, 4, 1),
+                                   (40000, 3, 2), (777, 5, 2), (300, 6, 1), (3001, 7, 2), (64, 8, 2)])
+def test_k9_matches_plain_across_shapes(dev, M, n, A):
+    """Every gradient leaf and the metric sums against the plain version
+    (rtol 2e-3, atol 2e-6 a leaf); two launches give the same bits."""
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    data, aops, cops = _k9_synthetic(dev, M, n, A, M + n + A)
+    kw = dict(n_agents=n, act_dim=A, clip_eps=0.2, huber_delta=1.0, value_coef=0.5)
+    before = k9.launches
+    got = k9.fused_ppo_grads(data, aops, cops, **kw)
+    assert k9.launches == before + 1
+    want = k9.fused_ppo_grads_plain(data, aops, cops, **kw)
+    for i, (x, y) in enumerate(zip(got[0] + got[1], want[0] + want[1])):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-6, msg=lambda m: f"leaf {i}: {m}")
+    per_row = torch.tensor([n * M, M, n * M], dtype=torch.float32, device=dev)
+    torch.testing.assert_close(got[2] / per_row, want[2] / per_row, rtol=2e-3, atol=1e-6)
+    again = k9.fused_ppo_grads(data, aops, cops, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got[0] + got[1] + (got[2],), again[0] + again[1] + (again[2],)))
+
+
+def test_k9_shared_memory_and_grid(dev):
+    """The launcher's plan: at n=3 two blocks of each role fit an SM (the
+    critic's rows of 54 with one stage of input copies), so each launch is
+    one wave of two blocks an SM; rows up to 485 floats (n=8: the critic's
+    384) fit one block, 486 (n=9) none, and the wrapper raises there."""
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    assert k9._plan(18, True, i) == (2, 2) and k9._plan(54, False, i) == (2, 1)
+    for K in (96, 150, 216, 294, 384, 485):
+        assert k9._plan(K, False, i)[0] >= 1, K
+    assert k9._plan(486, False, i)[0] == 0
+    sms = k9._sm_count(dev)
+    assert k9._grid(307200, 2, sms) == 2 * sms and k9._grid(102400, 2, sms) == 2 * sms
+    data, aops, cops = _k9_synthetic(dev, 4, 9, 2, 0)
+    with pytest.raises(ValueError, match="shared memory"):
+        k9.fused_ppo_grads(data, aops, cops, n_agents=9, act_dim=2, clip_eps=0.2, huber_delta=1.0,
+                           value_coef=0.5)
 
 
 def test_fused_train_step_card_matches_cpu(dev):

@@ -125,3 +125,69 @@ def test_k9_plain_env_and_agent_advantages(adv_per_agent):
     got = k9.fused_ppo_grads(batch, aops, cops, **KW)
     for x, y in zip(got[0] + got[1] + (got[2],), ref[0] + ref[1] + (ref[2],)):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("G", [1, 7, 132, 264])
+def test_k9_chunk_assignment_covers_each_row_once(G):
+    """The card kernel's walk of chunks (block b takes chunks b, b + G, ...:
+    chunk_rows_plain, its loop in numpy) takes every row once, at row
+    counts below a chunk, ragged, one over a full wave and the N=3 epoch's."""
+    for rows in (1, 63, 64, 65, 777, 64 * G, 64 * G + 1, 307200):
+        owner, visits = k9.chunk_rows_plain(rows, G)
+        assert (visits == 1).all(), rows
+        assert owner.min() >= 0 and owner.max() < G
+
+
+def test_k9_grid_is_one_wave_of_busy_blocks():
+    """Each launch is at most one wave (the plan's blocks an SM on each of
+    the card's 132 SMs), and every block takes a chunk."""
+    for per_sm in (1, 2, 3):
+        for rows in (1, 64, 65, 16896, 102400, 307200):
+            G = k9._grid(rows, per_sm, 132)
+            assert G <= 132 * per_sm
+            assert G == 132 * per_sm or G * 64 >= rows
+            owner, _ = k9.chunk_rows_plain(rows, G)
+            assert len(np.unique(owner)) == G
+
+
+def _zero_batch(M, n, A):
+    do, H = 6 * n, 64
+    z = lambda *s: torch.zeros(*s)
+    data = {"obs": z(M, n, do), "action": z(M, n, A), "logp": z(M, n), "adv": z(M), "value": z(M),
+            "target": z(M)}
+    aops = (z(do, H), z(H), z(H, H), z(H), z(H, A), z(A), z(A))
+    cops = (z(n * do, H), z(H), z(H, H), z(H), z(H, 1), z(1))
+    return data, aops, cops
+
+
+def test_k9_wrapper_limits_on_a_simulated_card(monkeypatch):
+    """On a (simulated) card the wrapper sizes each role's launch by the
+    launcher's plan and launches once for every n whose rows fit (here up
+    to n=8: the critic's rows of 384); it raises where the plan fits no
+    block (the shared memory of rows too wide), for an act_dim other than 1
+    or 2, and for a W1 not aligned to 16 bytes (read in 16-byte loads)."""
+    from test_torch_physics import fake_card
+
+    calls = fake_card(monkeypatch)
+    monkeypatch.setattr(k9, "_sm_count", lambda dev: 132)
+    asked = []
+
+    def plan(K, actor, device):
+        asked.append((K, actor))
+        return (2 if K <= 64 else 1, 1) if K <= 485 else (0, 1)
+
+    monkeypatch.setattr(k9, "_plan", plan)
+    kw = dict(clip_eps=0.2, huber_delta=1.0, value_coef=0.5)
+    before = k9.launches
+    for n, A in ((3, 2), (4, 1), (5, 2), (7, 1), (8, 2)):
+        k9.fused_ppo_grads(*_zero_batch(10, n, A), n_agents=n, act_dim=A, **kw)
+    assert calls == ["fused_ppo_grad_launch"] * 5 and k9.launches == before + 5
+    assert asked[:2] == [(18, True), (54, False)] and asked[-1] == (384, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        k9.fused_ppo_grads(*_zero_batch(10, 9, 2), n_agents=9, act_dim=2, **kw)
+    with pytest.raises(ValueError, match="act_dim"):
+        k9.fused_ppo_grads(*_zero_batch(10, 3, 3), n_agents=3, act_dim=3, **kw)
+    data, aops, cops = _zero_batch(10, 3, 2)
+    aops = (torch.zeros(18 * 64 + 1)[1:].view(18, 64),) + aops[1:]
+    with pytest.raises(ValueError, match="16 bytes"):
+        k9.fused_ppo_grads(data, aops, cops, n_agents=3, act_dim=2, **kw)

@@ -3,12 +3,20 @@ pairforce_cull.py): the Morton sort of its plain version held bit for bit
 against the JAX package's, the plain version against the JAX culled kernel
 in interpret mode, the dense kernel and a float64 oracle, on the same numpy
 inputs; the card kernel's grid of cells (grid_cells_plain, in the kernel's
-float32 arithmetic) on adversarial fixtures, and its exactness."""
+float32 arithmetic) on adversarial fixtures, and its exactness.  The
+pair-plane plain versions call no MKL vector-math operation, and the plain
+K8's first call in a fresh process gives the bits of its later calls."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gym_formation_tpu.core import make_world_cfg as j_make_world_cfg
 from gym_formation_tpu.ops.pallas import collision_forces_batched as j_dense
@@ -16,7 +24,8 @@ from gym_formation_tpu.ops.pallas import collision_forces_culled as j_culled
 from gym_formation_tpu.ops.pallas import morton_order as j_morton
 
 from gym_formation_tpu_torch.core import make_world_cfg
-from gym_formation_tpu_torch.ops.kernels import pairforce, pairforce_cull
+from gym_formation_tpu_torch.ops import pairwise_dists
+from gym_formation_tpu_torch.ops.kernels import pairforce, pairforce_cull, pairforce_sym
 
 from test_torch_pairforce import f64_oracle, het_case, hd_case
 
@@ -44,6 +53,73 @@ def test_k8_plain_matches_pallas_interpret_and_oracle(case):
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
     for b in range(pos.shape[0]):
         np.testing.assert_allclose(got[b], f64_oracle(pos[b], tcfg), atol=1e-3, rtol=1e-3)
+
+
+# ATen's CPU kernels that call MKL's vector math library (ATen/cpu/vml.h:
+# IMPLEMENT_VML_MKL; pow reaches sqrt's at the exponent 0.5).  The first such
+# call of a process, split over the intra-op threads, can give one thread's
+# share from a less accurate routine: MKL's lazy set-up races.
+_MKL_VML_OPS = {"acos", "asin", "atan", "cos", "erf", "erfc", "erfinv", "exp", "log", "log10", "log2",
+                "pow", "sin", "sqrt", "tan", "tanh", "trunc"}
+
+
+class _OpRecorder(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.ops = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.add(func._schema.name.split("::")[-1])
+        return func(*args, **(kwargs or {}))
+
+
+def _pair_plains():
+    cfg = make_world_cfg(40, 20, agent_size=0.03, landmark_size=0.01)
+    pos = torch.as_tensor(np.random.RandomState(4).uniform(-0.3, 0.3, (2, 60, 2)), dtype=torch.float32)
+    return {
+        "k8": lambda: pairforce_cull.collision_forces_culled_plain(pos, cfg),
+        "k6": lambda: pairforce.collision_forces_batched_plain(pos, cfg),
+        "k1": lambda: pairforce_sym.collision_forces_sym_plain(pos, **pairforce_sym._params(cfg)),
+        "pairwise_dists": lambda: pairwise_dists(pos, pos),
+    }
+
+
+@pytest.mark.parametrize("name", ["k8", "k6", "k1", "pairwise_dists"])
+def test_pair_plains_call_no_mkl_vector_math(name):
+    """The cause of the plain K8's first-call flake, pinned: the pair-plane
+    plain versions call none of the ATen operations that go through MKL's
+    vector math library (their distance is hypot, their softplus ATen's)."""
+    with _OpRecorder() as rec:
+        _pair_plains()[name]()
+    assert "hypot" in rec.ops or name == "k1"
+    assert not rec.ops & _MKL_VML_OPS, sorted(rec.ops & _MKL_VML_OPS)
+
+
+_FIRST_CALL = """
+import numpy as np, torch
+from gym_formation_tpu_torch.core import make_world_cfg
+from gym_formation_tpu_torch.ops.kernels import pairforce_cull
+cfg = make_world_cfg(243, 243, agent_size=0.03, landmark_size=0.01)
+pos = torch.as_tensor(np.random.RandomState(0).uniform(-0.5, 0.5, (5, 486, 2)).astype(np.float32))
+f = [pairforce_cull.collision_forces_culled_plain(pos, cfg) for _ in range(3)]
+print(sum(not torch.equal(f[0], g) for g in f[1:]))
+"""
+
+
+def test_k8_plain_first_call_equals_later_calls():
+    """In fresh processes (no JAX), the plain K8's first call on hd_case's
+    inputs gives the bits of its later calls.  With torch.sqrt and
+    torch.exp the MKL race above struck a few processes in a hundred
+    (``tools/first_call_probe.py`` counts them); the test above pins the
+    cause, this one the symptom."""
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, "-c", _FIRST_CALL], cwd=root, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE) for _ in range(6)]
+    for p in procs:
+        out, err = p.communicate(timeout=120)
+        assert p.returncode == 0, err
+        assert out.strip() == "0"
 
 
 def test_k8_plain_equals_dense_on_spread_positions():

@@ -22,6 +22,7 @@ from gym_formation_tpu_torch import _device
 from gym_formation_tpu_torch.core import WallCfg, make_world_cfg
 from gym_formation_tpu_torch.core import physics as tphys
 from gym_formation_tpu_torch.ops import _build
+from gym_formation_tpu_torch.ops import kernels
 from gym_formation_tpu_torch.ops.kernels import pairforce_sym, reward_sym
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -164,13 +165,18 @@ def test_cpu_tensor_takes_plain_path_without_launch():
 def fake_card(monkeypatch):
     """Simulate a card: the dispatch rule answers 'kernel' and the kernel
     library is a stub whose launchers record their names and return 0.
-    Returns the list of launcher names called."""
+    The wrappers' launch counters are restored after the test, so that the
+    simulated launches do not reach a later test of the process.  Returns
+    the list of launcher names called."""
     calls = []
 
     class _Lib:
         def __getattr__(self, name):
             return lambda *args: calls.append(name) or 0
 
+    for name in kernels.__all__:
+        mod = getattr(kernels, name)
+        monkeypatch.setattr(mod, "launches", mod.launches)
     monkeypatch.setattr(_device, "use_kernel", lambda t: True)
     monkeypatch.setattr(_build, "lib", lambda: _Lib())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})())

@@ -76,3 +76,35 @@ def test_scenario_reward_matches_jax(n):
     got = tscen.reward(gt.state_from_numpy(st)).numpy()
     assert want.min() < -1.0  # collision terms present
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+# N = 1..300 in three groups, each a test: every tile side R = 2, 4, 8, 16,
+# every ragged last super-tile, and two super-tiles of 256 (N > 256)
+@pytest.mark.parametrize("lo,hi", [(1, 65), (65, 129), (129, 301)])
+def test_k2_tile_schedule_covers_each_distance_and_pair_once(lo, hi):
+    """The card kernel's schedule (tile_schedule_plain, its loops in numpy)
+    computes each (agent, vertex) distance once and tests each unordered
+    agent pair once: a pair skipped or taken twice would move a count."""
+    for N in range(lo, hi):
+        dist, pair = reward_sym.tile_schedule_plain(N)
+        assert (dist == 1).all(), N
+        assert np.array_equal(pair, np.triu(np.ones((N, N), np.int64), 1)), N
+
+
+def test_k2_wrapper_limits_on_a_simulated_card(monkeypatch):
+    """The tile side R by N, as the launcher picks it; on a (simulated) card
+    every N up to MAX_AGENTS, 6400 (at least the 2042 the kernel held
+    before), reaches the launcher, its padded layout within the H100's 227
+    KB a block; beyond it the wrapper raises."""
+    from test_torch_physics import fake_card
+
+    sides = [reward_sym.tile_side(N) for N in (1, 32, 33, 64, 65, 128, 129, 243, 6400)]
+    assert sides == [2, 2, 4, 4, 8, 8, 16, 16, 16]
+    top = reward_sym.MAX_AGENTS
+    assert top >= 2042 and reward_sym._smem_bytes(top) <= 232448 < reward_sym._smem_bytes(top + 1)
+    calls = fake_card(monkeypatch)
+    for N in (1, 243, top):
+        reward_sym.hd_reward_stats_sym(torch.zeros(2, N, 2), torch.zeros(2, N, 2), thresh=THRESH)
+    assert calls == ["reward_sym_launch"] * 3
+    with pytest.raises(ValueError, match="at most"):
+        reward_sym.hd_reward_stats_sym(torch.zeros(1, top + 1, 2), torch.zeros(1, top + 1, 2), thresh=THRESH)
