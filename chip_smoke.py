@@ -39,7 +39,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 10. K5 (MAPPO collection) against its plain version: n=3, B=4096, T=25,
    ep_len 10 with the episode counters spread so that every env resets;
    trajectory and state within tolerance, done and counters exact, stored
-   logp and value against the networks re-applied.  Kernel and plain times.
+   logp and value against the networks re-applied.  The same gates at n=9,
+   B=4096 (tiles of 4 envs, several persistent waves).  Kernel and plain
+   times of both.
 11. K9 (PPO epoch gradient) against its plain version on a real K5
    trajectory after _prepare (M = 102,400), every gradient leaf within rtol
    2e-3, atol 2e-6, two runs bit for bit, and the learner's epoch gradient
@@ -217,18 +219,17 @@ def random_networks(n, seed, dev, log_std=-0.5):
     return actor.to(dev), critic.to(dev)
 
 
-def phase_k5(dev, rng):
-    """K5 against its plain version at the N=3 training shape, every env
-    crossing a reset; and the stored logp and value against the networks
-    re-applied to the stored obs and actions."""
+def k5_check(dev, rng, n, B):
+    """K5 against its plain version at n agents and B envs, T=25, every env
+    crossing a reset.  Returns (max abs err, a kernel call, a plain call on
+    the same inputs, the kernel's trajectory, (actor, critic))."""
     import gym_formation_tpu_torch as gt
-    from gym_formation_tpu_torch.models.networks import gaussian_logp
     from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
     from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
 
-    n, B, T, ep_len = 3, NUM_ENVS, 25, 10
-    v3 = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device=dev, seed=5)
-    soa = k4.state_to_soa(v3.reset_state())
+    T, ep_len = 25, 10
+    v = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device=dev, seed=5)
+    soa = k4.state_to_soa(v.reset_state())
     soa = soa._replace(t=torch.as_tensor(rng.randint(0, ep_len, (1, B)), dtype=torch.int32, device=dev))
     actor, critic = random_networks(n, 7, dev)
     aops, cops = k5.actor_planes(actor), k5.critic_planes(critic)
@@ -240,13 +241,31 @@ def phase_k5(dev, rng):
     # done and the episode counters exact
     err = 0.0
     for name in ("ap", "av", "ishape", "ivel"):
-        err = max(err, check_close(getattr(s_k, name), getattr(s_p, name), 1e-5, 0.0, f"K5 {name}"))
+        err = max(err, check_close(getattr(s_k, name), getattr(s_p, name), 1e-5, 0.0, f"K5 n={n} {name}"))
     for name in ("obs", "action", "logp", "value", "reward"):
-        err = max(err, check_close(tr_k[name], tr_p[name], 1e-4, 1e-5, f"K5 {name}"))
-        require(bool(torch.isfinite(tr_k[name]).all()), f"K5 {name}: non-finite")
-    require(torch.equal(s_k.t, s_p.t), "K5 episode counters differ")
-    require(torch.equal(tr_k["done"], tr_p["done"]), "K5 done flags differ")
-    require(bool(tr_k["done"].any(0).all()), "K5: not every env reset")
+        err = max(err, check_close(tr_k[name], tr_p[name], 1e-4, 1e-5, f"K5 n={n} {name}"))
+        require(bool(torch.isfinite(tr_k[name]).all()), f"K5 n={n} {name}: non-finite")
+    require(torch.equal(s_k.t, s_p.t), f"K5 n={n}: episode counters differ")
+    require(torch.equal(tr_k["done"], tr_p["done"]), f"K5 n={n}: done flags differ")
+    require(bool(tr_k["done"].any(0).all()), f"K5 n={n}: not every env reset")
+    E, smem = k5.launch_plan(n)
+    print(f"K5 n={n} B={B} T={T} ep_len={ep_len} (tiles of {E} envs, {smem} bytes of shared memory, "
+          f"{k5._blocks_per_sm(n, torch.cuda.current_device())} blocks an SM): max abs err {err:.3e} "
+          f"(state atol 1e-5; trajectory atol 1e-4 rtol 1e-5), done and counters equal, every env reset")
+    run = lambda: k5.fused_collect_hd(soa, aops, cops, 9, **kw)
+    plain = lambda: k5.fused_collect_hd_plain(soa, aops, cops, 9, **kw)
+    return err, run, plain, tr_k, (actor, critic)
+
+
+def phase_k5(dev, rng):
+    """K5 against its plain version at the N=3 training shape and at n=9 over
+    several persistent waves (B=4096: 1024 tiles of 4 envs), every env
+    crossing a reset; and at n=3 the stored logp and value against the
+    networks re-applied to the stored obs and actions."""
+    from gym_formation_tpu_torch.models.networks import gaussian_logp
+
+    n, B, T = 3, NUM_ENVS, 25
+    err, run, plain, tr_k, (actor, critic) = k5_check(dev, rng, n, B)
     # network parity: tolerances of tests/test_fused_collect.py
     obs = tr_k["obs"].reshape(T * B, n, 6 * n)
     with torch.no_grad():
@@ -254,13 +273,13 @@ def phase_k5(dev, rng):
         lp_ref = gaussian_logp(*actor(obs), tr_k["action"].reshape(T * B, n, 2))
     check_close(tr_k["value"].reshape(-1), v_ref, 1e-4, 1e-4, "K5 value vs critic")
     check_close(tr_k["logp"].reshape(T * B, n), lp_ref, 1e-4, 1e-4, "K5 logp vs actor")
-    ms, plain_ms = time_pair(lambda: k5.fused_collect_hd(soa, aops, cops, 9, **kw),
-                             lambda: k5.fused_collect_hd_plain(soa, aops, cops, 9, **kw), plain_reps=1)
-    print(f"K5 n={n} B={B} T={T} ep_len={ep_len}: max abs err {err:.3e} (state atol 1e-5; "
-          f"trajectory atol 1e-4 rtol 1e-5), done and counters equal, every env reset; "
-          f"logp and value match the networks re-applied")
+    print("K5 n=3: logp and value match the networks re-applied")
+    ms, plain_ms = time_pair(run, plain, plain_reps=1)
+    err9, run9, plain9, *_ = k5_check(dev, np.random.RandomState(9), 9, B)
+    ms9, plain9_ms = time_pair(run9, plain9, plain_reps=1)
+    print(f"K5 n=9 B={B} T={T}: kernel {ms9:.4f} ms, plain {plain9_ms:.4f} ms")
     print(f"K5 n={n} B={B} T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(err=err, ms=ms, plain_ms=plain_ms)
+    return dict(err=max(err, err9), ms=ms, plain_ms=plain_ms)
 
 
 def mappo_n3(dev, num_envs, **cfg):

@@ -1,5 +1,5 @@
 // K7: Hausdorff and collision statistics of the formation_hd reward, in one
-// sweep of the agent x vertex and agent x agent planes.
+// pass over the agent x vertex and agent x agent planes of each env.
 //
 // Replaces gym_formation_tpu/ops/pallas/reward.py:hd_reward_stats_batched
 // (its _kernel, the row-major layout of set_reward_impl("rowmajor")).  Same
@@ -8,108 +8,98 @@
 // Per env b, with the agents c_i = a_i - mean(a) centred on their centroid
 // and the ideal shape s_j:
 //
-//   haus2[b]    = max(max_i min_j |c_i - s_j|^2, max_j min_i |c_i - s_j|^2)
-//   ncoll[b, i] = #{ j : |a_i - a_j|^2 < thresh^2 } - 1   (raw positions;
-//                 the full sweep counts the self hit, which is taken off)
+//   haus[b]     = sqrt(max(max_i min_j |c_i - s_j|^2, max_j min_i |c_i - s_j|^2))
+//   ncoll[b, i] = #{ j : |a_i - a_j|^2 < thresh^2 } - 1   (raw positions)
 //
-// The wrapper takes the one square root of haus2.
+// That is K2's function: the plain version counts the full sweep minus the
+// self hit, the kernel counts j != i, with the same result.
 //
-// What bounds it on the H100: the two N^2 sweeps, about 14 FP32 operations
-// and one warp shuffle per agent-vertex-agent triple (59k pairs an env at
-// N=243).  Device memory traffic is only 4 x B x N x 4 bytes in and
+// What bounds it on the H100: instruction issue, as K2.  At N=243 an env has
+// 59k (agent, vertex) distances and 29k unordered agent pairs, all plain
+// FP32 arithmetic; device memory traffic is only 4 x B x N x 4 bytes in and
 // B x (N + 1) x 4 out.
 //
-// Design: one thread block per env; raw agents, centred agents and the
-// shape sit in shared memory.  The TPU kernel accumulates the column minima
-// across its sequential row-tile grid; here the thread of agent i computes
-// each distance |c_i - s_j|^2 once and feeds both minima.  The row minimum
-// stays in the thread's register.  For the column minimum, each warp walks
-// the vertices in tiles of 32, lane l on vertex (l + s) mod 32 at step s,
-// and carries one running minimum per vertex that moves one lane down at
-// every step (one shuffle a pair); after 32 steps lane l holds the warp's
-// minimum of vertex (l + 31) mod 32, and one atomicMin on its bit pattern
-// (non-negative floats order as unsigned ints) merges it into shared
-// memory.  The collision count runs in the same loop.  As in K2, the
-// count's squared distance is rounded step by step (rn_*), so counts equal
-// the plain version's exactly and equal K2's on the same inputs; the
-// centroid is K2's (block_centroid), so Hausdorff distances match K2's too.
+// Design: K2's unmasked kernel.  One block of HD_THREADS = 256 threads an
+// env, four blocks an SM; the env's raw agents and shape are loaded into
+// shared memory padded with NaN to Np, a multiple of the super-tile 16 R (a
+// NaN distance is dropped by the minima and never counts as a collision),
+// and hd_stats_tiles<R> (common.cuh) computes each (agent, vertex) distance
+// once and tests each unordered agent pair once in R x R register tiles, the
+// minima and counts merged by shared integer atomics (exact in any order, so
+// two launches give the same bits).  The counts now come from unordered
+// pairs, as K2's do: a hit adds 1 to both agents, and the agent itself is
+// never tested.  The wrapper picks R (2, 4, 8, 16 by N) and the shared
+// memory with K2's rules, so K7 and K2 give the same bits on the same
+// inputs.  The count's squared distance is rounded step by step (rn_*), so
+// counts equal the plain version's exactly.
 
 #include "common.cuh"
 
-__global__ void reward_rowmajor_kernel(const float* __restrict__ apos,
-                                       const float* __restrict__ ishape,
-                                       float* __restrict__ haus2,
-                                       float* __restrict__ ncoll, int N,
-                                       float thresh2) {
-  extern __shared__ float sh[];
-  float* rx = sh;          // raw agent x
-  float* ry = sh + N;      // raw agent y
-  float* cx = sh + 2 * N;  // centred agent x
-  float* cy = sh + 3 * N;  // centred agent y
-  float* sx = sh + 4 * N;  // shape x
-  float* sy = sh + 5 * N;  // shape y
-  unsigned* colmin = (unsigned*)(sh + 6 * N);  // bit patterns of the minima
-  float* scratch = sh + 7 * N;
-  const int b = blockIdx.x, lane = threadIdx.x & 31;
-  const size_t base = (size_t)b * N * 2;
-  for (int t = threadIdx.x; t < N; t += blockDim.x) {
-    rx[t] = apos[base + 2 * t];
-    ry[t] = apos[base + 2 * t + 1];
-    sx[t] = ishape[base + 2 * t];
-    sy[t] = ishape[base + 2 * t + 1];
-    colmin[t] = __float_as_uint(FLT_MAX);
-  }
-  __syncthreads();
-  block_centroid(rx, ry, cx, cy, N, scratch);
+namespace {
 
-  float worst = 0.f;  // squared distances are >= 0
-  // every thread takes the same number of row passes, so that whole warps
-  // take part in the shuffles; rows past N are dummies
-  for (int row0 = 0; row0 < N; row0 += blockDim.x) {
-    const int i = row0 + threadIdx.x;
-    const bool real = i < N;
-    const float ax = real ? cx[i] : 0.f, ay = real ? cy[i] : 0.f;
-    const float qx = real ? rx[i] : 0.f, qy = real ? ry[i] : 0.f;
-    float rmin = FLT_MAX;
-    int cnt = 0;
-    for (int j0 = 0; j0 < N; j0 += 32) {
-      float acc = FLT_MAX;  // at step s: the minimum of vertex j0 + (lane + s) % 32
-      for (int s = 0; s < 32; ++s) {
-        if (s > 0) acc = __shfl_sync(0xffffffffu, acc, (lane + 1) & 31);
-        const int j = j0 + ((lane + s) & 31);
-        if (j < N) {
-          const float dx = ax - sx[j], dy = ay - sy[j];
-          const float d2 = dx * dx + dy * dy;
-          rmin = fminf(rmin, d2);
-          if (real) acc = fminf(acc, d2);
-          const float e2 = rn_sq2(rn_sub(qx, rx[j]), rn_sub(qy, ry[j]));
-          cnt += e2 < thresh2;
-        }
-      }
-      const int jc = j0 + ((lane + 31) & 31);
-      if (jc < N) atomicMin(&colmin[jc], __float_as_uint(acc));
-    }
-    if (real) {
-      worst = fmaxf(worst, rmin);
-      ncoll[(size_t)b * N + i] = (float)(cnt - 1);
-    }
+template <int R>
+__global__ void __launch_bounds__(HD_THREADS, 4)
+    reward_rowmajor_kernel(const float2* __restrict__ apos, const float2* __restrict__ ishape,
+                           float* __restrict__ haus, float* __restrict__ ncoll, int N, int Np,
+                           float thresh2) {
+  const int b = blockIdx.x;
+  // shared words: raw x, y, centred x, y, shape x, y, rmin, cmin, cnt (Np
+  // each) and 32 of scratch
+  extern __shared__ float sh[];
+  float* rx = sh;
+  float* ry = sh + Np;
+  float* cx = sh + 2 * Np;
+  float* cy = sh + 3 * Np;
+  float* sx = sh + 4 * Np;
+  float* sy = sh + 5 * Np;
+  int* rmin = (int*)(sh + 6 * Np);
+  int* cmin = (int*)(sh + 7 * Np);
+  int* cnt = (int*)(sh + 8 * Np);
+  float* scratch = sh + 9 * Np;
+  const float nan = __int_as_float(0x7fc00000);
+  for (int t = threadIdx.x; t < Np; t += blockDim.x) {
+    const bool in = t < N;
+    const float2 p = in ? apos[(size_t)b * N + t] : make_float2(nan, nan);
+    const float2 q = in ? ishape[(size_t)b * N + t] : make_float2(nan, nan);
+    rx[t] = p.x;
+    ry[t] = p.y;
+    sx[t] = q.x;
+    sy[t] = q.y;
   }
   __syncthreads();
-  for (int t = threadIdx.x; t < N; t += blockDim.x)
-    worst = fmaxf(worst, __uint_as_float(colmin[t]));
-  const float h2 = block_reduce(worst, scratch, true);
-  if (threadIdx.x == 0) haus2[b] = h2;
+  const float h = hd_stats_tiles<R>(rx, ry, sx, sy, cx, cy, rmin, cmin, cnt, N, Np, thresh2, scratch);
+  for (int t = threadIdx.x; t < N; t += blockDim.x) ncoll[(size_t)b * N + t] = (float)cnt[t];
+  if (threadIdx.x == 0) haus[b] = h;
 }
 
-extern "C" int reward_launch(const void* apos, const void* ishape, void* haus2,
-                             void* ncoll, int B, int N, float thresh2,
-                             void* stream) {
+template <int R>
+cudaError_t launch(const void* apos, const void* ishape, void* haus, void* ncoll, int B, int N,
+                   int smem, float thresh2, cudaStream_t s) {
+  const int Np = 16 * R * ((N + 16 * R - 1) / (16 * R));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(reward_rowmajor_kernel<R>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  reward_rowmajor_kernel<R><<<B, HD_THREADS, smem, s>>>((const float2*)apos, (const float2*)ishape,
+                                                        (float*)haus, (float*)ncoll, N, Np, thresh2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// R, the side of a thread's tile (2, 4, 8 or 16), and smem, the block's
+// shared memory bytes ((9 Np + 32) floats), are the wrapper's choice, by
+// K2's rules (ops/kernels/reward_sym.py: tile_side, _smem_bytes).
+extern "C" int reward_launch(const void* apos, const void* ishape, void* haus, void* ncoll, int B,
+                             int N, int R, int smem, float thresh2, void* stream) {
   if (B == 0 || N == 0) return 0;
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const size_t smem = ((size_t)7 * N + 32) * sizeof(float);
-  reward_rowmajor_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)apos, (const float*)ishape, (float*)haus2, (float*)ncoll,
-      N, thresh2);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (R) {
+    case 2: return (int)launch<2>(apos, ishape, haus, ncoll, B, N, smem, thresh2, s);
+    case 4: return (int)launch<4>(apos, ishape, haus, ncoll, B, N, smem, thresh2, s);
+    case 8: return (int)launch<8>(apos, ishape, haus, ncoll, B, N, smem, thresh2, s);
+    case 16: return (int)launch<16>(apos, ishape, haus, ncoll, B, N, smem, thresh2, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

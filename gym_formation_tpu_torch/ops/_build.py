@@ -41,8 +41,8 @@ SIGNATURES = {
     # apos, ishape, mask, haus_fb, ncoll_fb, haus, ncoll, B, N, R, smem,
     # thresh2, stream
     "reward_sym_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # apos, ishape, haus2, ncoll, B, N, thresh2, stream
-    "reward_launch": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # apos, ishape, haus, ncoll, B, N, R, smem, thresh2, stream
+    "reward_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # apos, avel, aforce, ishape, ivel, npos, nvel, haus, ncoll, B, N,
     # pos_bstride, vel_bstride, L, post, k, invk, cf, dmin, thresh2, keep,
     # fscale, dt, max_speed, act_scale, stream
@@ -52,8 +52,11 @@ SIGNATURES = {
     "fused_rollout_launch": (_P,) * 11 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
     # ap, av, ishape, ivel, t (in), 7 actor + 6 critic operands, ap, av,
     # ishape, ivel, t (out), obs, act, logp, value, reward, done, B, n, T,
-    # ep_len, seed, sens, dmin, thresh2, cf, margin, invk, keep, dt, stream
-    "fused_collect_launch": (_P,) * 29 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
+    # ep_len, E, G, smem, seed, sens, dmin, thresh2, cf, margin, invk, keep,
+    # dt, stream
+    "fused_collect_launch": (_P,) * 29 + (_I,) * 7 + (_U,) + (_F,) * 8 + (_P,),
+    # n, E, smem -> K5's blocks an SM
+    "fused_collect_plan": (_I, _I, _I),
     # obs, act, lpo, adv, vold, tgt, 7 actor + 6 critic operands, part_a,
     # part_c, Ma, M, DO, DC, A, Ga, Gc, Sa, Sc, clip_eps, huber_delta,
     # value_coef, inv_ma, inv_mc, stream

@@ -18,13 +18,19 @@ launches.  The plain version runs the kernel's operations in the kernel's
 order, each rounded on its own, the layer products included (a running sum
 over the inputs, one multiply and one add per input), so on the card the two
 agree bit for bit.
+
+The kernel takes the envs in tiles of E, one tile a block at a time, in a
+persistent grid; :func:`launch_plan` gives E and the shared bytes by n,
+:func:`collect_schedule_plain` repeats in numpy which thread computes what.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ... import _device
@@ -38,6 +44,91 @@ launches = 0
 KERNEL_AGENTS = (3, 4, 9)
 HIDDEN = 64
 _LOG_2PI = math.log(2.0 * math.pi)
+
+# The kernel's block and shared-memory layout (csrc/fused_collect.cu)
+_THREADS = 256
+_WS = 68  # row stride of a transposed weight matrix, floats
+_HS = 68  # row stride of a hidden activation, floats
+_SMEM_MAX = 232448  # bytes of shared memory a block may use on the H100, opted in beyond 48 KB
+
+
+def smem_bytes(n: int, E: int) -> int:
+    """Shared memory of a block at n agents and E envs a tile: the weights
+    (four matrices transposed to rows of ``_WS`` floats, the biases and
+    heads) and the tile's activations (obs, two hidden layers of each
+    network, two steps' normals, the actions)."""
+    do, dc, a, H = 6 * n, 6 * n * n, 2 * n, HIDDEN
+    weights = (do + H + dc + H) * _WS + 7 * H + 4
+    tile = E * (dc + 2 * n * _HS + 2 * _HS + 3 * a)
+    return 4 * (weights + tile)
+
+
+def launch_plan(n: int) -> Tuple[int, int]:
+    """(E, shared bytes) of the kernel at n agents: E, the envs of a tile, is
+    the largest of 16, 8, 4, 2, 1 whose block fits the card's shared memory
+    (n=3: 16, n=4: 16, n=9: 4); the launcher checks that it was built for
+    the pair."""
+    E = next((E for E in (16, 8, 4, 2, 1) if smem_bytes(n, E) <= _SMEM_MAX), None)
+    if E is None:
+        raise ValueError(f"K5's weights at n={n} do not fit a block's shared memory")
+    return E, smem_bytes(n, E)
+
+
+def grid_blocks(B: int, E: int, per_sm: int, sms: int) -> int:
+    """Blocks of the persistent grid: one wave (``per_sm`` blocks on each of
+    ``sms`` SMs), and no block without a tile."""
+    return max(1, min(-(-B // E), sms * per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(n: int, device: int) -> int:
+    """Resident blocks an SM of the kernel for n agents on card ``device``,
+    from the occupancy API on the compiled kernel (``fused_collect_plan``)."""
+    E, smem = launch_plan(n)
+    with torch.cuda.device(device):
+        per_sm = _build.lib().fused_collect_plan(n, E, smem)
+    if per_sm < 1:
+        raise RuntimeError(f"fused_collect_plan(n={n}, E={E}, smem={smem}) returned {per_sm}")
+    return per_sm
+
+
+def collect_schedule_plain(n: int, E: int, B: int, G: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The kernel's schedule in numpy, counting how often each piece of work
+    is done in one step of a launch over B envs with G blocks (default: one
+    tile a block).  Block g takes the tiles of envs b0 = (g + k G) E ..
+    b0 + E - 1, cut at B; in a tile, thread tid < E runs env b0 + tid, thread
+    (ug, rg) = (tid % 16, tid / 16) computes units 4 ug .. 4 ug + 3 of the
+    rows rg + 16 j < rows of each layer (j < ceil(rows / 16)), and thread
+    tid takes the head outputs tid, tid + 256, ... below E (2n + 1).
+
+    Returns ``env`` [B] (the envs run), ``actor1``, ``actor2`` [B n, 64]
+    (actor outputs per env-agent row), ``critic1``, ``critic2`` [B, 64],
+    ``mean`` [B, n, 2] and ``value`` [B] (head outputs), each counting the
+    computations whose results reach the trajectory."""
+    G = -(-B // E) if G is None else G
+    A, H = 2 * n, HIDDEN
+    tid = np.arange(_THREADS)
+    ug, rg = tid % 16, tid // 16
+    per_row = dict(actor1=n, actor2=n, critic1=1, critic2=1)  # rows of a layer an env
+    out = {k: np.zeros((B * r, H), np.int64) for k, r in per_row.items()}
+    out.update(env=np.zeros(B, np.int64), mean=np.zeros(B * A, np.int64), value=np.zeros(B, np.int64))
+    for g in range(G):
+        for b0 in range(g * E, B, G * E):
+            nv = min(E, B - b0)
+            np.add.at(out["env"], b0 + tid[tid < nv], 1)
+            for name, m in per_row.items():
+                for j in range(-(-E * m // 16)):
+                    r = rg + 16 * j
+                    keep = (r < E * m) & (r < nv * m)  # a row of the tile, of an env in the batch
+                    for c in range(4):
+                        np.add.at(out[name], (b0 * m + r[keep], 4 * ug[keep] + c), 1)
+            t = np.concatenate([tid + _THREADS * k for k in range(-(-E * (A + 1) // _THREADS))])
+            t = t[t < E * (A + 1)]
+            mean, val = t[t < E * A], t[t >= E * A] - E * A
+            np.add.at(out["mean"], b0 * A + mean[mean < nv * A], 1)
+            np.add.at(out["value"], b0 + val[val < nv], 1)
+    out["mean"] = out["mean"].reshape(B, n, 2)
+    return out
 
 
 def actor_planes(actor) -> Tuple[torch.Tensor, ...]:
@@ -273,10 +364,12 @@ def fused_collect_hd(
         done=torch.empty((T, B), dtype=torch.bool, device=dev),
     )
     c = _consts(sensitivity, agent_size, coll_factor, contact_force, contact_margin, damping, dt)
+    E, smem = launch_plan(n)
+    G = grid_blocks(B, E, _blocks_per_sm(n, dev.index), torch.cuda.get_device_properties(dev).multi_processor_count)
     rc = _build.lib().fused_collect_launch(
         *(x.data_ptr() for x in soa), *(w.data_ptr() for w in actor_ops), *(w.data_ptr() for w in critic_ops),
         *(x.data_ptr() for x in out), *(traj[k].data_ptr() for k in ("obs", "action", "logp", "value", "reward", "done")),
-        B, n, T, int(ep_len), int(seed) & _M32,
+        B, n, T, int(ep_len), E, G, smem, int(seed) & _M32,
         c["sens"], c["dmin"], c["thresh2"], c["cf"], c["margin"], c["invk"], c["keep"], c["dt"],
         torch.cuda.current_stream(dev).cuda_stream,
     )

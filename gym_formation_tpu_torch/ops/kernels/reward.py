@@ -4,7 +4,9 @@ one sweep (the row-major kernel of ``set_reward_impl("rowmajor")``).
 The CUDA kernel ``csrc/reward.cu`` replaces the TPU kernel
 ``gym_formation_tpu/ops/pallas/reward.py:hd_reward_stats_batched``.  Its
 source note says what bounds it on the H100 and how it is laid out.  It
-computes K2's function: the collision counts come from the full N x N sweep
+computes K2's function with K2's register tiles (``hd_stats_tiles``), and
+this wrapper picks the tile side and the shared memory by K2's rules, so K7
+and K2 give the same bits.  The plain version counts the full N x N sweep
 minus the self hit instead of K2's ``j != i``, with the same result.
 
 :func:`hd_reward_stats_batched` is the wrapper: a CUDA tensor launches the
@@ -20,12 +22,9 @@ import torch
 
 from ... import _device
 from .. import _build
+from .reward_sym import MAX_AGENTS, _smem_bytes, tile_side
 
 launches = 0
-
-# Largest agent count whose point sets and column minima fit the kernel's
-# default 48 KB of shared memory ((7 N + 32) floats).
-MAX_AGENTS = (48 * 1024 // 4 - 32) // 7
 
 
 def hd_reward_stats_batched_plain(
@@ -66,15 +65,14 @@ def hd_reward_stats_batched(
     B, N, _ = apos.shape
     if N > MAX_AGENTS:
         raise ValueError(f"K7 holds at most {MAX_AGENTS} agents per env, got {N}")
-    haus2 = torch.empty(B, dtype=torch.float32, device=apos.device)
+    haus = torch.empty(B, dtype=torch.float32, device=apos.device)
     ncoll = torch.empty(B, N, dtype=torch.float32, device=apos.device)
     rc = _build.lib().reward_launch(
-        apos.data_ptr(), ishape.data_ptr(), haus2.data_ptr(), ncoll.data_ptr(),
-        B, N, float(thresh) * float(thresh),
+        apos.data_ptr(), ishape.data_ptr(), haus.data_ptr(), ncoll.data_ptr(),
+        B, N, tile_side(N), _smem_bytes(N), float(thresh) * float(thresh),
         torch.cuda.current_stream(apos.device).cuda_stream,
     )
     _build.check(rc, "reward")
     global launches
     launches += 1
-    # the kernel reduces squared distances; one sqrt per env here
-    return torch.sqrt(haus2), ncoll
+    return haus, ncoll

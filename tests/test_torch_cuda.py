@@ -446,6 +446,49 @@ def test_k5_matches_plain_across_resets(dev, n, B, squeeze):
         assert bool((rel.norm(dim=-1) < 0.03).any())
 
 
+def _k5_pair(dev, n, B, seed):
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+
+    soa = _soa(dev, n, B, 10, seed)
+    actor, critic = _networks(n, dev, n)
+    return k5, soa, k5.actor_planes(actor), k5.critic_planes(critic)
+
+
+@pytest.mark.parametrize("n", [3, 4, 9])
+def test_k5_matches_plain_at_full_batch(dev, n):
+    """B = 4096, the training batch: at n=3 256 tiles of 16 in one wave; at
+    n=9 1024 tiles of 4 walked by one block an SM (several persistent
+    waves).  The gates of test_k5_matches_plain_across_resets."""
+    k5, soa, aops, cops = _k5_pair(dev, n, 4096, 5 * n)
+    E, _ = k5.launch_plan(n)
+    per_sm = k5._blocks_per_sm(n, torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert per_sm == (2 if n == 3 else 1)
+    if n == 9:
+        assert -(-4096 // E) > 2 * k5.grid_blocks(4096, E, per_sm, sms)  # several tiles a block
+    kw = dict(length=25, ep_len=10, n=n)
+    s_k, tr_k = k5.fused_collect_hd(soa, aops, cops, 4, **kw)
+    s_p, tr_p = k5.fused_collect_hd_plain(soa, aops, cops, 4, **kw)
+    for name in ("ap", "av", "ishape", "ivel"):
+        torch.testing.assert_close(getattr(s_k, name), getattr(s_p, name), atol=1e-5, rtol=0)
+    for name in ("obs", "action", "logp", "value", "reward"):
+        torch.testing.assert_close(tr_k[name], tr_p[name], atol=1e-4, rtol=1e-5)
+    assert torch.equal(s_k.t, s_p.t) and torch.equal(tr_k["done"], tr_p["done"])
+    assert bool(tr_k["done"].any(0).all())
+
+
+@pytest.mark.parametrize("n,B", [(3, 4096), (9, 1100)])
+def test_k5_is_deterministic(dev, n, B):
+    """Two launches give the same bits: no sum depends on the schedule."""
+    k5, soa, aops, cops = _k5_pair(dev, n, B, 1)
+    kw = dict(length=25, ep_len=10, n=n)
+    (s1, t1), (s2, t2) = (k5.fused_collect_hd(soa, aops, cops, 8, **kw) for _ in range(2))
+    for a, b in zip(s1, s2):
+        assert torch.equal(a, b)
+    for k in t1:
+        assert torch.equal(t1[k], t2[k]), k
+
+
 def _k9_data(dev, num_envs, T=8, n=3):
     from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
 
@@ -700,6 +743,37 @@ def test_k7_matches_plain_and_k2(dev, N, B, scale):
     h2, nc2 = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
     torch.testing.assert_close(h, h2, atol=1e-6, rtol=0)
     assert torch.equal(nc, nc2)
+
+
+@pytest.mark.parametrize("N,B,scale", [(1, 2, 1.0), (5, 3, 0.05), (100, 9, 0.05), (243, 4, 1.0), (1100, 2, 0.05)])
+def test_k7_equals_k2_bit_for_bit(dev, N, B, scale):
+    """K7 runs K2's register tiles with K2's tile side and shared memory, so
+    the two give the same bits (the fixtures of test_k7_matches_plain_and_k2)."""
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+
+    rng = np.random.RandomState(N)
+    apos = torch.as_tensor(rng.uniform(-1, 1, (B, N, 2)) * scale, dtype=torch.float32, device=dev)
+    ishape = torch.as_tensor(rng.uniform(-1, 1, (B, N, 2)), dtype=torch.float32, device=dev)
+    h, nc = k7.hd_reward_stats_batched(apos, ishape, thresh=0.03)
+    h2, nc2 = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+    assert torch.equal(h, h2) and torch.equal(nc, nc2)
+
+
+def test_k7_at_max_agents(dev):
+    """K2's limit, 6400 agents (K7 held 1750 in 48 KB before): 225 KB of
+    shared memory, opted in beyond 48 KB; against plain and K2."""
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+
+    N = k7.MAX_AGENTS
+    rng = np.random.RandomState(0)
+    apos = torch.as_tensor(rng.uniform(-1, 1, (2, N, 2)) * 0.3, dtype=torch.float32, device=dev)
+    ishape = torch.as_tensor(rng.uniform(-1, 1, (2, N, 2)), dtype=torch.float32, device=dev)
+    h, nc = k7.hd_reward_stats_batched(apos, ishape, thresh=0.03)
+    h_p, nc_p = k7.hd_reward_stats_batched_plain(apos, ishape, thresh=0.03)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=0)
+    assert torch.equal(nc, nc_p) and int(nc.sum()) > 0
+    h2, nc2 = k2.hd_reward_stats_sym(apos, ishape, thresh=0.03)
+    assert torch.equal(h, h2) and torch.equal(nc, nc2)
 
 
 def _near_pairs(pos, cfg):

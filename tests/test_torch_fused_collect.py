@@ -122,3 +122,36 @@ def test_k5_plain_other_agent_counts():
         for k in ("action", "logp", "value", "reward"):
             np.testing.assert_allclose(tr[k].numpy(), np.asarray(jtraj[k]), rtol=1e-4, atol=2e-4, err_msg=(n, k))
         np.testing.assert_allclose(tsoa.ap.numpy(), np.asarray(jsoa.ap), atol=1e-4)
+
+
+def test_k5_launch_plan():
+    """E, the envs of a tile, by n: the largest of 16, 8, 4, 2, 1 whose
+    block fits the H100's 227 KB of shared memory; the bytes are the
+    kernel's layout (csrc/fused_collect.cu: Dims)."""
+    assert {n: k5.launch_plan(n) for n in k5.KERNEL_AGENTS} == {3: (16, 95632), 4: (16, 120464), 9: (4, 213904)}
+    for n in k5.KERNEL_AGENTS:
+        E, smem = k5.launch_plan(n)
+        assert smem == k5.smem_bytes(n, E) <= k5._SMEM_MAX
+        assert E == 16 or k5.smem_bytes(n, 2 * E) > k5._SMEM_MAX
+    # the weights alone: 53.0, 65.3 and 172.8 KB at n = 3, 4, 9
+    for n, kb in ((3, 53.0), (4, 65.3), (9, 172.8)):
+        do, dc = 6 * n, 6 * n * n
+        assert round(4 * (do * 64 + 64 + 64 * 64 + 64 + 2 * 64 + 2 + dc * 64 + 64 + 64 * 64 + 64 + 64 + 1) / 1000, 1) == kb
+    assert k5.grid_blocks(4096, 16, 2, 132) == 256 and k5.grid_blocks(7, 16, 2, 132) == 1
+    assert k5.grid_blocks(4096, 4, 1, 132) == 132
+
+
+@pytest.mark.parametrize("n", [3, 4, 9])
+@pytest.mark.parametrize("B", [1, 7, 37, 4096])
+def test_k5_schedule_covers_each_output_once(n, B):
+    """The persistent loop visits every env once, and every (row, unit)
+    output of each layer and every head output reaching the trajectory is
+    computed once, with one tile a block, with the grid of one wave on 132
+    SMs, and with a few blocks walking many tiles."""
+    E, _ = k5.launch_plan(n)
+    for G in (None, k5.grid_blocks(B, E, 1, 132), 3):
+        sched = k5.collect_schedule_plain(n, E, B, G)
+        assert set(sched) == {"env", "actor1", "actor2", "critic1", "critic2", "mean", "value"}
+        for name, count in sched.items():
+            assert (count == 1).all(), (name, G)
+        assert sched["actor1"].shape == (B * n, 64) and sched["mean"].shape == (B, n, 2)

@@ -60,3 +60,42 @@ def test_k7_plain_f64():
     assert h_t.dtype == torch.float64
     np.testing.assert_allclose(h_t.numpy(), np.asarray(h_x), rtol=1e-10, atol=1e-10)
     np.testing.assert_array_equal(nc_t.numpy(), np.asarray(nc_x))
+
+
+@pytest.mark.parametrize("lo,hi", [(1, 150), (150, 301)])
+def test_k7_launch_plan_is_k2s(monkeypatch, lo, hi):
+    """On a (simulated) card K7's wrapper passes its launcher the tile side
+    R and the shared bytes that K2's wrapper passes its own, for every N:
+    one schedule (tile_schedule_plain, CPU-tested in test_torch_reward.py),
+    so the two kernels give the same bits."""
+    from test_torch_physics import fake_card
+
+    fake_card(monkeypatch)
+    seen = []
+
+    class _Lib:
+        def __getattr__(self, name):
+            return lambda *args: seen.append((name, args[-5:-2])) or 0
+
+    monkeypatch.setattr(reward._build, "lib", lambda: _Lib())
+    for N in range(lo, hi):
+        x = torch.zeros(2, N, 2)
+        reward.hd_reward_stats_batched(x, x, thresh=THRESH)
+        reward_sym.hd_reward_stats_sym(x, x, thresh=THRESH)
+        (n7, (N7, R7, smem7)), (n2, (N2, R2, smem2)) = seen[-2:]
+        assert (n7, n2) == ("reward_launch", "reward_sym_launch")
+        assert N7 == N2 == N and (R7, smem7) == (R2, smem2) == (reward_sym.tile_side(N), reward_sym._smem_bytes(N))
+
+
+def test_k7_holds_k2s_agent_count(monkeypatch):
+    """K7's limit is K2's (6400 agents, from the H100's 227 KB a block);
+    beyond it the wrapper raises on a (simulated) card."""
+    from test_torch_physics import fake_card
+
+    calls = fake_card(monkeypatch)
+    assert reward.MAX_AGENTS == reward_sym.MAX_AGENTS == 6400
+    top = reward.MAX_AGENTS
+    reward.hd_reward_stats_batched(torch.zeros(1, top, 2), torch.zeros(1, top, 2), thresh=THRESH)
+    assert calls == ["reward_launch"]
+    with pytest.raises(ValueError, match="at most"):
+        reward.hd_reward_stats_batched(torch.zeros(1, top + 1, 2), torch.zeros(1, top + 1, 2), thresh=THRESH)

@@ -1,8 +1,8 @@
 """Time the port's kernels on the card, against a parent checkout or by phase.
 
-    python tools/ab_pair_kernels.py [--set pair|k2k9] [--root DIR] [--out PATH]
-    python tools/ab_pair_kernels.py [--set pair|k2k9] --ab PARENT_DIR [--rounds R] [--out PATH]
-    python tools/ab_pair_kernels.py --phases k3|k8|k2k9 [--out PATH]
+    python tools/ab_pair_kernels.py [--set pair|k2k9|k5k7] [--root DIR] [--out PATH]
+    python tools/ab_pair_kernels.py [--set pair|k2k9|k5k7] --ab PARENT_DIR [--rounds R] [--out PATH]
+    python tools/ab_pair_kernels.py --phases k3|k8|k2k9|k5 [--out PATH]
 
 With ``--root`` (default: this checkout) it imports
 ``gym_formation_tpu_torch`` from DIR, builds its kernels, and prints one
@@ -43,6 +43,17 @@ JSON line for the kernel set (``--set``, default ``pair``):
   as above; ``mappo_n243``: training env-steps/s of MAPPO's structured path
   at N=243, B=1024 (median of 2 iterations after a warm-up).
 
+``k5k7``, the fused MAPPO collection K5 and the row-major reward
+statistics K7:
+
+- ``k5_ms``: K5 at n=3, B=4096, T=25 (the MAPPO N=3 training shape) on a
+  fresh batch with the episode counters spread over ep_len 10, as
+  ``chip_smoke.py: phase_k5`` builds it; ``k5n9_ms``: the same at n=9;
+- ``k7_ms``, ``k2_ms``: K7 and K2 at N=243, B=4096 on the step path's
+  state after its 128 steps (``step``: that path's env-steps/s);
+- ``collect_ms``, ``prepare_ms``, ``update_ms`` and ``mappo_n3``: the MAPPO
+  N=3 fused iteration, as for ``k2k9``.
+
 Each kernel time is the mean of 20 calls by CUDA events after a warm-up, as
 ``chip_smoke.py: time_ms`` takes it, with the host's time a call to enqueue
 them beside (``<kernel>_enqueue_ms``): where the two meet, the host paces
@@ -76,6 +87,10 @@ timing.
   built for three blocks an SM; K9 without dW1, without its last two phases
   (dW2, g1 and dW1), with one role's launch only, without its sums over
   blocks.
+- ``k5``: K5 at n=3 and n=9 (``k5k7``'s inputs) with the layer products
+  and heads alone (the scalar phase of the env threads cut out), with the
+  scalar phase alone (the two layers and the heads cut out), and without
+  the heads.
 
 Needs a CUDA device and ``nvcc``; exits 1 without a device.
 """
@@ -352,6 +367,27 @@ def train_walls(algo, ts, es, obs, g, iters):
     return walls, ts, es, obs
 
 
+def mappo_split(algo, dev, out):
+    """``mappo_n3``: training env-steps/s of ``algo`` (the median of 3
+    ``train_step`` walls after a warm-up), and ``collect_ms``, ``prepare_ms``,
+    ``update_ms``: the medians of 3 split iterations, into ``out``.  Returns
+    the generator."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ts, es, obs = algo.init(g)
+    walls, ts, es, obs = train_walls(algo, ts, es, obs, g, 4)
+    out["mappo_n3"] = algo.cfg.rollout_len * B / statistics.median(walls[1:])
+    splits = []
+    for _ in range(3):
+        ms, ts, es, obs = split_iteration(algo, ts, es, obs, g)
+        splits.append(ms)
+    for i, k in enumerate(("collect", "prepare", "update")):
+        out[k + "_ms"] = statistics.median(s[i] for s in splits)
+    return g
+
+
 def measure_k2k9(root: Path, full: bool = True) -> dict:
     import torch
 
@@ -377,22 +413,66 @@ def measure_k2k9(root: Path, full: bool = True) -> dict:
     if not full:
         return out
 
-    g = torch.Generator(device=dev)
-    g.manual_seed(0)
-    ts, es, obs = algo.init(g)
-    walls, ts, es, obs = train_walls(algo, ts, es, obs, g, 4)
-    out["mappo_n3"] = algo.cfg.rollout_len * B / statistics.median(walls[1:])
-    splits = []
-    for _ in range(3):
-        ms, ts, es, obs = split_iteration(algo, ts, es, obs, g)
-        splits.append(ms)
-    for i, k in enumerate(("collect", "prepare", "update")):
-        out[k + "_ms"] = statistics.median(s[i] for s in splits)
+    g = mappo_split(algo, dev, out)
     out["fused"], out["fused_enqueue_ms"] = rate(_fused_path(gt, hd), 32)
     big = MAPPO(gt.make_env("formation_hd_env", num_agents=N), MAPPOConfig(), num_envs=1024, device=dev)
     ts2, es2, obs2 = big.init(g)
     walls2, *_ = train_walls(big, ts2, es2, obs2, g, 3)
     out["mappo_n243"] = big.cfg.rollout_len * 1024 / statistics.median(walls2[1:])
+    return out
+
+
+def k5_inputs(gt, n, dev):
+    """K5's operands at n agents, B=4096, as ``chip_smoke.py: phase_k5``
+    builds them: a fresh ``formation_hd_env`` batch with the episode
+    counters spread over ep_len 10, and a GaussianActor and ValueCritic from
+    seed 7 with head gains raised."""
+    import numpy as np
+    import torch
+    from gym_formation_tpu_torch.models.networks import GaussianActor, ValueCritic
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+
+    v = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device=dev, seed=5)
+    soa = k4.state_to_soa(v.reset_state())
+    t = np.random.RandomState(0).randint(0, 10, (1, B))
+    soa = soa._replace(t=torch.as_tensor(t, dtype=torch.int32, device=dev))
+    g = torch.Generator()
+    g.manual_seed(7)
+    actor = GaussianActor(6 * n, 2, (64, 64), generator=g)
+    critic = ValueCritic(6 * n * n, (64, 64), generator=g)
+    with torch.no_grad():
+        actor.head.weight.mul_(50.0)
+        actor.log_std.fill_(-0.5)
+    actor, critic = actor.to(dev), critic.to(dev)
+    return soa, k5.actor_planes(actor), k5.critic_planes(critic)
+
+
+def measure_k5k7(root: Path, full: bool = True) -> dict:
+    import torch
+
+    gt = _package(root)
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import reward as k7
+    from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
+
+    dev = torch.device("cuda")
+    out = dict(root=str(root), device=torch.cuda.get_device_name(0))
+    for n, key in ((3, "k5"), (9, "k5n9")):
+        soa, aops, cops = k5_inputs(gt, n, dev)
+        timed(out, key, lambda: k5.fused_collect_hd(soa, aops, cops, 9, length=25, ep_len=10, n=n))
+    if not full:
+        return out
+    hd = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=N, device=dev, seed=0)
+    step, box = _step_path(gt, hd)
+    out["step"], out["step_enqueue_ms"] = rate(step, 32)  # 128 steps: the step path's state
+    pos, ishape = hd.env.scenario.agent_pos(box[0]).contiguous(), box[0].ideal_shape.contiguous()
+    timed(out, "k2", lambda: k2.hd_reward_stats_sym(pos, ishape, thresh=0.03))
+    timed(out, "k7", lambda: k7.hd_reward_stats_batched(pos, ishape, thresh=0.03))
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3), MAPPOConfig(fused_update=True),
+                 num_envs=B, device=dev)
+    mappo_split(algo, dev, out)
     return out
 
 
@@ -407,6 +487,9 @@ SETS = {
                  keys=("k2_ms", "k2_enqueue_ms", "k9_ms", "k9_enqueue_ms", "k7_ms", "collect_ms", "prepare_ms",
                        "update_ms", "mappo_n3", "step", "step_enqueue_ms", "fused", "fused_enqueue_ms",
                        "mappo_n243")),
+    "k5k7": dict(measure=measure_k5k7, symbols=("fused_collect_kernel", "reward_rowmajor_kernel"),
+                 keys=("k5_ms", "k5_enqueue_ms", "k5n9_ms", "k7_ms", "k7_enqueue_ms", "k2_ms", "collect_ms",
+                       "prepare_ms", "update_ms", "mappo_n3", "step", "step_enqueue_ms")),
 }
 
 
@@ -479,6 +562,11 @@ K9_ACTOR = ("fused_ppo_grad.cu", "  return (int)launch_role<false>(gc, s);", ";"
 K9_CRITIC = ("fused_ppo_grad.cu", "  cudaError_t err = launch_role<true>(ga, s);", ";",
              "  cudaError_t err = cudaSuccess;")
 K9_NO_SUM = ("fused_ppo_grad.cu", "  slice_sum_kernel<<<", ";", "")
+K5_SCALAR_START = "      // ---- scalar phase: one thread an env\n"
+K5_SCALAR = ("fused_collect.cu", K5_SCALAR_START, "      // ---- end of the scalar phase\n", "")
+K5_PRODUCTS = ("fused_collect.cu", "      // ---- layer 1\n", "      __syncthreads();\n" + K5_SCALAR_START,
+               "      __syncthreads();\n" + K5_SCALAR_START)
+K5_HEADS = ("fused_collect.cu", "      // ---- heads", "      __syncthreads();\n" + K5_SCALAR_START, K5_SCALAR_START)
 
 # measure: root -> the copy's line; order: the variants in turn (the full
 # kernel first and last), each a tuple of cuts
@@ -490,6 +578,9 @@ PHASES = {
                  order=dict(full=(), no_counts=(K2_COUNTS,), no_haus=(K2_HAUS,), k2_3_blocks=(K2_3_BLOCKS,),
                             no_dw1=(K9_DW1,), forward=(K9_FORWARD,), actor_only=(K9_ACTOR,),
                             critic_only=(K9_CRITIC,), no_slice_sum=(K9_NO_SUM,))),
+    "k5": dict(measure=lambda root: measure_k5k7(root, full=False),
+               order=dict(full=(), products_alone=(K5_SCALAR,), scalar_alone=(K5_PRODUCTS,),
+                          no_heads=(K5_HEADS,))),
 }
 
 
