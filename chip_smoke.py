@@ -23,8 +23,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 6. K3 (fused step) against its plain version on the card: N=243, B=512 and
    4096, pre and post statistics, external actions and the in-kernel BFS,
    and a squeezed fixture with collisions; counts exact.
-7. K4 (whole rollout) against its plain version: n=3, B=4096, episode
-   counters spread so that every env resets during the 120 steps.
+7. K4 (whole rollout) against its plain version at every instantiated n:
+   n=3, B=4096 over 120 steps; n=4 and n=9, B=4096 over 50 steps; n=3, 4
+   and 9 at the ragged B=37 (the last warp's env groups partly empty). The
+   episode counters are spread so that every env resets; within the
+   tolerances of tests/test_fused_rollout.py and bit for bit.
 8. Fused path: rollout_statepolicy_fused(policy="bfs_ez", stats="pre") at
    N=243, B=4096 for 128 steps across one auto-reset.  K3 launches once a
    step, K2 (masked reset recompute) once a step and once to finalize, K1
@@ -35,7 +38,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    with the in-kernel BFS, K1 alone, K2 alone) beside its special-function
    bound; K2's masked form beside an unconditional recompute.
 9. N=3 path: fused_rollout_hd at n=3, B=4096, length 256 (one K4 launch a
-   window); env-steps/s as above, and K4's time beside its plain version's.
+   window); env-steps/s as above, and K4's time beside its plain version's,
+   K4 at n=9 (B=4096, 256 steps), each beside its bound, its no-FMA floor
+   and its special-function floor (``k4_floors``).
 10. K5 (MAPPO collection) against its plain version: n=3, B=4096, T=25,
    ep_len 10 with the episode counters spread so that every env resets;
    trajectory and state within tolerance, done and counters exact, stored
@@ -563,6 +568,35 @@ def pair_ops(ordered):
 def stat_ops(n):
     """FP32 operations of one env's reward statistics at n agents."""
     return n * n * HAUS_OPS + n * (n - 1) / 2 * COLL_SHARED_OPS + n * (n - 1) * COLL_DIR_OPS
+
+
+# ezpolicy (K4): per (agent, vertex) the differences 2, the squared distance
+# 3, the root 1 and the column's compare 1; per agent the far vertex n, the
+# pick 2n (the mask and the compare), the target n, the settled test 6n (the
+# differences, squares and sum over the shape, the compare), the action 8
+# and the force 6; per env the centroid 4n
+def policy_ops(n):
+    """FP32 operations of one env's ezpolicy at n agents."""
+    return n * n * 7 + n * (10 * n + 14) + 4 * n
+
+
+def env_step_ops(n):
+    """FP32 operations of one env step after the actions at n agents: the
+    contact pairs, the reward statistics and the integration."""
+    return pair_ops(n * (n - 1)) + stat_ops(n) + n * STEP_OPS
+
+
+def k4_floors(B, T, n):
+    """K4's least times for B envs and T steps at n agents, in ms: the bound
+    (FP32 operations as the function needs them, at the rate that counts a
+    multiply-add as two), the no-FMA floor (each operation one FP32
+    instruction, every multiply and add rounded on its own) and the
+    special-function floor (the policy's n^2 roots, 3 results an unordered
+    pair, the reward's two roots)."""
+    ops = B * T * (env_step_ops(n) + policy_ops(n))
+    ms, by = bound(B * 8 * (6 * n + 3) + 4 * B, ops)
+    sfu = B * T * (n * n + 3 * n * (n - 1) / 2 + 2) / SFU_OPS_PER_S * 1e3
+    return dict(bound=ms, bound_by=by, nofma=ops / (FP32_OPS_PER_S / 2) * 1e3, sfu=sfu)
 
 
 def sfu_ms(ordered):
@@ -1151,19 +1185,36 @@ def main() -> int:
     phase("K4 fused_rollout vs plain")
     n3, ep_len, k4_T = 3, 100, 120
     v3 = gt.make_vec_env("formation_hd_env", num_envs=NUM_ENVS, num_agents=n3, device=dev, seed=3)
-    soa = k4.state_to_soa(v3.reset_state())
-    soa = soa._replace(t=torch.as_tensor(rng.randint(0, ep_len, (1, NUM_ENVS)), dtype=torch.int32, device=dev))
-    kw4 = dict(length=k4_T, ep_len=ep_len, n=n3)
-    s_k, r_k = k4.fused_rollout_hd(soa, 5, **kw4)
-    s_p, r_p = k4.fused_rollout_hd_plain(soa, 5, **kw4)
-    # tolerances of tests/test_fused_rollout.py (n < 9)
-    k4_err = check_close(r_k, r_p, 2e-3, 5e-6, "K4 reward sum")
-    for name in ("ap", "av", "ishape", "ivel"):
-        k4_err = max(k4_err, check_close(getattr(s_k, name), getattr(s_p, name), 1e-5, 0.0, f"K4 {name}"))
-    require(torch.equal(s_k.t, s_p.t), "K4 episode counters differ")
-    require(bool((s_k.t < k4_T).all()), "K4: not every env reset")
-    print(f"K4 n={n3} B={NUM_ENVS} T={k4_T} ep_len={ep_len}: max abs err {k4_err:.3e} "
-          f"(state atol 1e-5; reward atol 2e-3 rtol 5e-6), counters equal, every env reset")
+    v9 = gt.make_vec_env("formation_hd_env", num_envs=NUM_ENVS, num_agents=9, device=dev, seed=3)
+    k4_err = 0.0
+    # (n, B, steps, ep_len): the batch of the N=3 path at each instantiated
+    # n, and a ragged B whose last warp's groups are partly empty; the
+    # episode counters spread over [0, ep_len) so that every env resets
+    for n, B4, T4, ep4 in ((n3, NUM_ENVS, k4_T, ep_len), (4, NUM_ENVS, 50, 40), (9, NUM_ENVS, 50, 40),
+                           (3, 37, 25, 10), (4, 37, 25, 10), (9, 37, 25, 10)):
+        if B4 == NUM_ENVS and n in (3, 9):
+            soa = k4.state_to_soa((v3 if n == 3 else v9).reset_state())
+        else:
+            soa = k4.state_to_soa(gt.make_vec_env("formation_hd_env", num_envs=B4, num_agents=n, device=dev,
+                                                  seed=n).reset_state())
+        trng = rng if (n, B4) == (n3, NUM_ENVS) else np.random.RandomState(n * B4)  # the later phases' draws stay
+        soa = soa._replace(t=torch.as_tensor(trng.randint(0, ep4, (1, B4)), dtype=torch.int32, device=dev))
+        kw4 = dict(length=T4, ep_len=ep4, n=n)
+        s_k, r_k = k4.fused_rollout_hd(soa, 5, **kw4)
+        s_p, r_p = k4.fused_rollout_hd_plain(soa, 5, **kw4)
+        # tolerances of tests/test_fused_rollout.py (state 3e-4 at n=9), and
+        # the design's claim: every output bit for bit
+        tol = 1e-5 if n < 9 else 3e-4
+        err = check_close(r_k, r_p, 2e-3, 5e-6, f"K4 n={n} B={B4} reward sum")
+        for name in ("ap", "av", "ishape", "ivel"):
+            err = max(err, check_close(getattr(s_k, name), getattr(s_p, name), tol, 0.0, f"K4 n={n} {name}"))
+        require(torch.equal(s_k.t, s_p.t), f"K4 n={n} B={B4}: episode counters differ")
+        require(bool((s_k.t < T4).all()), f"K4 n={n} B={B4}: not every env reset")
+        same = torch.equal(r_k, r_p) and all(torch.equal(x, y) for x, y in zip(s_k, s_p))
+        require(same, f"K4 n={n} B={B4}: not bit for bit with the plain version (max abs err {err:.3e})")
+        k4_err = max(k4_err, err)
+        print(f"K4 n={n} B={B4} T={T4} ep_len={ep4}: max abs err {err:.3e} (state atol {tol:g}; reward atol "
+              f"2e-3 rtol 5e-6), bit for bit, counters equal, every env reset")
 
     # -- 8. fused path (N=243) --------------------------------------------
     phase("fused path")
@@ -1290,7 +1341,14 @@ def main() -> int:
     k4_ms, k4_plain_ms = time_pair(lambda: k4.fused_rollout_hd(soa3, 1, length=N3_LENGTH, ep_len=ep_len, n=n3),
                                    lambda: k4.fused_rollout_hd_plain(soa3, 1, length=N3_LENGTH, ep_len=ep_len, n=n3),
                                    plain_reps=1)
-    print(f"K4 n={n3} B={NUM_ENVS} length {N3_LENGTH}: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms")
+    soa9 = k4.state_to_soa(v9.reset_state())
+    k4n9_ms = time_ms(lambda: k4.fused_rollout_hd(soa9, 1, length=N3_LENGTH, ep_len=ep_len, n=9), 20)
+    for n, ms in ((n3, k4_ms), (9, k4n9_ms)):
+        floors = k4_floors(NUM_ENVS, N3_LENGTH, n)
+        print(f"K4 n={n} B={NUM_ENVS} length {N3_LENGTH}: kernel {ms:.4f} ms"
+              + (f", plain {k4_plain_ms:.4f} ms" if n == n3 else "")
+              + f"; bound {floors['bound']:.4f} ms ({floors['bound_by']}), no-FMA floor {floors['nofma']:.4f} ms, "
+              f"special-function floor {floors['sfu']:.4f} ms")
 
     # -- 10. K5 ------------------------------------------------------------
     phase("K5 fused_collect vs plain")
@@ -1338,13 +1396,13 @@ def main() -> int:
     soa_bytes = lambda n: 8 * (6 * n + 3)  # SoA state in and out, per env
     actor = lambda n: mlp_flops((6 * n, 64, 64, 2))
     critic = lambda n: mlp_flops((6 * n * n, 64, 64, 1))
-    env_step_ops = lambda n: pair_ops(n * (n - 1)) + stat_ops(n) + n * STEP_OPS
     M = k9_res["M"]
+    k4b = k4_floors(B, N3_LENGTH, n3)
     bounds = {
         "pairforce_sym": bound(16 * B * N, B * pair_ops(N * (N - 1))),
         "reward_sym": bound(stat_bytes, B * stat_ops(N)),
         "fused_step": bound(44 * B * N + 12 * B, B * env_step_ops(N)),
-        "fused_rollout": bound(B * (soa_bytes(n3) + 4), B * N3_LENGTH * env_step_ops(n3)),
+        "fused_rollout": (k4b["bound"], k4b["bound_by"]),
         "fused_collect": bound(B * (soa_bytes(3) + 4 * 25 * (6 * 3 * 3 + 3 * 3 + 3)),
                                B * 25 * (3 * actor(3) + critic(3) + env_step_ops(3))),
         # the forward, the weight gradients (as many multiply-adds as the

@@ -48,8 +48,13 @@ SIGNATURES = {
     # fscale, dt, max_speed, act_scale, stream
     "fused_step_launch": (_P,) * 9 + (_I,) * 6 + (_F,) * 10 + (_P,),
     # ap, av, ishape, ivel, t (in), ap, av, ishape, ivel, t, reward (out), B,
-    # n, T, ep_len, seed, sens, dmin, thresh2, cf, margin, invk, keep, dt, stream
-    "fused_rollout_launch": (_P,) * 11 + (_I,) * 4 + (_U,) + (_F,) * 8 + (_P,),
+    # n, T, ep_len, G, threads, grid, seed, sens, dmin, thresh2, cf, margin,
+    # invk, keep, dt, stream
+    "fused_rollout_launch": (_P,) * 11 + (_I,) * 7 + (_U,) + (_F,) * 8 + (_P,),
+    # n, G, threads -> K4's blocks an SM
+    "fused_rollout_plan": (_I, _I, _I),
+    # mode, first index, count, out [2] (mismatches, operands in range), stream
+    "rn_fast_check_launch": (_I, ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P),
     # ap, av, ishape, ivel, t (in), 7 actor + 6 critic operands, ap, av,
     # ishape, ivel, t (out), obs, act, logp, value, reward, done, B, n, T,
     # ep_len, E, G, smem, seed, sens, dmin, thresh2, cf, margin, invk, keep,

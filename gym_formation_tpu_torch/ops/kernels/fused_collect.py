@@ -35,7 +35,7 @@ import torch
 
 from ... import _device
 from .. import _build
-from .fused_rollout import _M32, SoAState, _consts, _mean, _mul32, _softplus, _sq2, hash_u32
+from .fused_rollout import _M32, SoAState, _consts, _mean, _mul32, _softplus, _sq2, grid_blocks, hash_u32
 
 launches = 0
 
@@ -72,12 +72,6 @@ def launch_plan(n: int) -> Tuple[int, int]:
     if E is None:
         raise ValueError(f"K5's weights at n={n} do not fit a block's shared memory")
     return E, smem_bytes(n, E)
-
-
-def grid_blocks(B: int, E: int, per_sm: int, sms: int) -> int:
-    """Blocks of the persistent grid: one wave (``per_sm`` blocks on each of
-    ``sms`` SMs), and no block without a tile."""
-    return max(1, min(-(-B // E), sms * per_sm))
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,13 +22,20 @@ kernel's operations in the kernel's order, each rounded on its own, so on
 the card the two agree bit for bit.  Its means divide by a tensor: PyTorch
 on a GPU turns division by a Python scalar into a multiplication by its
 reciprocal, which rounds differently.
+
+The kernel takes each env on a group of n lanes of one warp, lane a for
+agent a; :func:`launch_plan` gives the envs a warp and the threads a block
+by n, :func:`grid_blocks` the grid, and :func:`rollout_schedule_plain`
+repeats in numpy which lane holds which (env, agent).
 """
 
 from __future__ import annotations
 
+import functools
 from functools import reduce
-from typing import List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ... import _device
@@ -40,6 +47,7 @@ launches = 0
 # Agent counts the kernel is instantiated for (a template parameter).
 KERNEL_AGENTS = (3, 4, 9)
 _M32 = 0xFFFFFFFF
+_WARPS = 2  # warps a block (csrc/fused_rollout.cu: WARPS)
 
 
 class SoAState(NamedTuple):
@@ -274,6 +282,71 @@ def _sq2(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     return dx * dx + dy * dy
 
 
+# -- launch plan ----------------------------------------------------------------
+
+def launch_plan(n: int) -> Tuple[int, int]:
+    """(G, threads) of the kernel at n agents: G = 32 // n envs a warp, each
+    on a group of n lanes (10 at n=3, 8 at n=4, 3 at n=9; the other lanes
+    idle), and two warps a block.  The launcher checks that it was built
+    for the pair."""
+    if n not in KERNEL_AGENTS:
+        raise ValueError(f"K4 is built for n in {KERNEL_AGENTS}, got n={n}")
+    return 32 // n, 32 * _WARPS
+
+
+def grid_blocks(B: int, per_block: int, per_sm: int, sms: int) -> int:
+    """Blocks of a persistent grid over B envs, ``per_block`` envs a block at
+    a time (K4: G envs a warp times its warps; K5: a tile): one wave
+    (``per_sm`` blocks on each of ``sms`` SMs; beyond it the blocks walk the
+    envs), and no block without an env."""
+    return max(1, min(-(-B // per_block), sms * per_sm))
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(n: int, device: int) -> int:
+    """Resident blocks an SM of the kernel for n agents on card ``device``,
+    from the occupancy API on the compiled kernel (``fused_rollout_plan``)."""
+    G, threads = launch_plan(n)
+    with torch.cuda.device(device):
+        per_sm = _build.lib().fused_rollout_plan(n, G, threads)
+    if per_sm < 1:
+        raise RuntimeError(f"fused_rollout_plan(n={n}, G={G}, threads={threads}) returned {per_sm}")
+    return per_sm
+
+
+def rollout_schedule_plain(n: int, B: int, grid: Optional[int] = None) -> Dict[str, np.ndarray]:
+    """The kernel's schedule in numpy over B envs with ``grid`` blocks
+    (default: one env group a warp).  Warp w = block · warps + warp takes the
+    env groups w, w + W, ... (W the warps of the grid) while w·G < B; in
+    round r, lane l of warp w holds agent l mod n of env (w + r W)·G + l // n
+    if l // n < G and that env is below B, else nothing.
+
+    Returns ``env`` [B] (the groups that ran each env), ``agent`` [B, n] (the
+    lanes that held each (env, agent)), and ``lane_env``, ``lane_agent``
+    [rounds, grid · threads] (what each thread held in each round, -1 for
+    nothing)."""
+    G, threads = launch_plan(n)
+    warps = threads // 32
+    grid = -(-B // (G * warps)) if grid is None else grid
+    W = grid * warps
+    tid = np.arange(grid * threads)
+    w0, lane = tid // 32, tid % 32
+    g, a = lane // n, lane % n
+    rounds = -(-(-(-B // G)) // W)
+    lane_env = np.full((rounds, tid.size), -1, np.int64)
+    lane_agent = np.full((rounds, tid.size), -1, np.int64)
+    env = np.zeros(B, np.int64)
+    agent = np.zeros((B, n), np.int64)
+    for r in range(rounds):
+        w = w0 + r * W
+        b = w * G + g
+        live = (w * G < B) & (g < G) & (b < B)
+        lane_env[r, live], lane_agent[r, live] = b[live], a[live]
+        np.add.at(agent, (b[live], a[live]), 1)
+        np.add.at(env, b[live & (a == 0)], 1)
+    return dict(env=env, agent=agent, lane_env=lane_env, lane_agent=lane_agent)
+
+
 # -- wrapper ------------------------------------------------------------------
 
 def fused_rollout_hd(
@@ -294,14 +367,14 @@ def fused_rollout_hd(
     """Run ``length`` fused env steps of every env.  Returns
     ``(SoAState', reward_sum [B])``, where reward_sum is each env's reward
     summed over steps and agents (the shared-reward broadcast included).
-    On the card, n must be one of :data:`KERNEL_AGENTS`."""
+    On the card, n must be one of :data:`KERNEL_AGENTS`; the launch follows
+    :func:`launch_plan` and :func:`grid_blocks`."""
     kw = dict(length=length, ep_len=ep_len, n=n, sensitivity=sensitivity, agent_size=agent_size,
               coll_factor=coll_factor, contact_force=contact_force,
               contact_margin=contact_margin, damping=damping, dt=dt)
     if not _device.use_kernel(soa.ap):
         return fused_rollout_hd_plain(soa, seed, **kw)
-    if n not in KERNEL_AGENTS:
-        raise ValueError(f"K4 is built for n in {KERNEL_AGENTS}, got n={n}")
+    G, threads = launch_plan(n)
     B = soa.ap.shape[-1]
     shapes = dict(ap=(2 * n, B), av=(2 * n, B), ishape=(2 * n, B), ivel=(2, B), t=(1, B))
     for name, shape in shapes.items():
@@ -313,9 +386,12 @@ def fused_rollout_hd(
     out = SoAState(*(torch.empty_like(t) for t in soa))
     rew = torch.empty(B, dtype=torch.float32, device=soa.ap.device)
     c = _consts(sensitivity, agent_size, coll_factor, contact_force, contact_margin, damping, dt)
+    dev = soa.ap.device
+    grid = grid_blocks(B, G * (threads // 32), _blocks_per_sm(n, dev.index),
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
     rc = _build.lib().fused_rollout_launch(
         *(t.data_ptr() for t in soa), *(t.data_ptr() for t in out), rew.data_ptr(),
-        B, n, int(length), int(ep_len), int(seed) & _M32,
+        B, n, int(length), int(ep_len), G, threads, grid, int(seed) & _M32,
         c["sens"], c["dmin"], c["thresh2"], c["cf"], c["margin"], c["invk"], c["keep"], c["dt"],
         torch.cuda.current_stream(soa.ap.device).cuda_stream,
     )

@@ -16,6 +16,7 @@ import torch
 import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch.core import make_world_cfg
 from gym_formation_tpu_torch.envs.formation_hd import FormationHDScenario
+from gym_formation_tpu_torch.ops import _build
 from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
 from gym_formation_tpu_torch.ops.kernels import fused_step as k3
 from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
@@ -360,6 +361,85 @@ def test_k4_matches_plain_across_resets(dev, n, B):
     for name in ("ap", "av", "ishape", "ivel"):
         torch.testing.assert_close(getattr(s_k, name), getattr(s_p, name), atol=tol, rtol=0)
     assert torch.equal(s_k.t, s_p.t)
+
+
+def _k4_pair(dev, n, B, seed, T=25, ep_len=10):
+    soa = _soa(dev, n, B, ep_len, seed)
+    kw = dict(length=T, ep_len=ep_len, n=n)
+    return k4.fused_rollout_hd(soa, 11, **kw), k4.fused_rollout_hd_plain(soa, 11, **kw)
+
+
+@pytest.mark.parametrize("n", [3, 4, 9])
+@pytest.mark.parametrize("B", [7, 37, 4096])
+def test_k4_equals_plain_bit_for_bit(dev, n, B):
+    """Lane groups of n in a warp: every output equal to the plain
+    version's, across resets (ep_len 10, 25 steps: every env resets at least
+    twice).  B=7 and 37 leave the last warp's groups partly empty; B=4096 is
+    the N=3 path's batch."""
+    before = k4.launches
+    (s_k, r_k), (s_p, r_p) = _k4_pair(dev, n, B, 3 * n + B)
+    assert k4.launches == before + 1
+    assert torch.equal(r_k, r_p)
+    for name in k4.SoAState._fields:
+        assert torch.equal(getattr(s_k, name), getattr(s_p, name)), name
+    assert bool((s_k.t < 25).all())
+
+
+@pytest.mark.parametrize("gap", [0.0, 0.13, 0.16])
+def test_k4_fallback_step_equals_plain(dev, gap):
+    """Agent 1 of every env at ``gap`` from agent 0: a zero distance (the
+    root's operand out of the fast path's range), a contact penalty of about
+    4e-32 (the division's numerator out of range), one of a subnormal or
+    zero.  The warp takes the step on the intrinsics; every output is still
+    the plain version's, bit for bit."""
+    soa = _soa(dev, 3, 37, 10, 4)
+    ap = soa.ap.clone()
+    ap[1] = ap[0] + gap
+    ap[4] = ap[3]
+    soa = soa._replace(ap=ap)
+    kw = dict(length=3, ep_len=10, n=3)
+    (s_k, r_k), (s_p, r_p) = k4.fused_rollout_hd(soa, 2, **kw), k4.fused_rollout_hd_plain(soa, 2, **kw)
+    assert torch.equal(r_k, r_p)
+    for name in k4.SoAState._fields:
+        assert torch.equal(getattr(s_k, name), getattr(s_p, name)), name
+
+
+@pytest.mark.parametrize("mode,count", [(0, 1 << 32), (1, 1 << 32), (2, 1 << 32), (3, 1 << 32), (4, 1 << 34),
+                                        (5, 1 << 34)])
+def test_rn_fast_paths_equal_intrinsics(dev, mode, count):
+    """common.cuh's branch-free sqrt and division equal __fsqrt_rn and
+    __fdiv_rn wherever their range tests pass: over every float for the root
+    (mode 0) and for division by 3, 4 and 9 (modes 1-3), over 2^34 random
+    pairs for division (mode 4), and over every numerator below 2^-63
+    (subnormal and zero quotients) by 16 divisors (mode 5)."""
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib, stream = _build.lib(), torch.cuda.current_stream(dev).cuda_stream
+    for off in range(0, count, 1 << 31):
+        _build.check(lib.rn_fast_check_launch(mode, off, min(1 << 31, count - off), out.data_ptr(), stream),
+                     "rn_fast_check")
+    bad, in_range = out.tolist()
+    assert bad == 0 and in_range > count // 3, (bad, in_range)
+
+
+def test_k4_plan_and_refusal(dev):
+    """The occupancy API gives blocks an SM for each built plan; the
+    launcher refuses a plan it was not built for, and launches nothing."""
+    lib = _build.lib()
+    for n in k4.KERNEL_AGENTS:
+        G, threads = k4.launch_plan(n)
+        assert lib.fused_rollout_plan(n, G, threads) >= 1
+        assert lib.fused_rollout_plan(n, G + 1, threads) == -2
+        assert lib.fused_rollout_plan(n, G, 2 * threads) == -2
+    assert lib.fused_rollout_plan(5, 6, 64) == -2
+    soa = _soa(dev, 3, 8, 10, 0)
+    out = k4.SoAState(*(torch.empty_like(t) for t in soa))
+    rew = torch.empty(8, device=dev)
+    G, threads = k4.launch_plan(3)
+    for g, th, n in ((G - 1, threads, 3), (G, 32, 3), (G, threads, 5)):
+        rc = lib.fused_rollout_launch(*(t.data_ptr() for t in soa), *(t.data_ptr() for t in out), rew.data_ptr(),
+                                      8, n, 2, 10, g, th, 1, 0, 5.0, 0.06, 9e-4, 100.0, 1e-3, 1e3, 0.75, 0.1,
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        assert rc != 0, (g, th, n)
 
 
 def test_k3_k4_wrappers_reject_bad_inputs(dev):

@@ -195,3 +195,40 @@ def test_soa_roundtrip_matches_jax():
     # landmarks are recentred in the state, so the round trip is exact up to rounding
     np.testing.assert_allclose(back.pos.numpy(), st["pos"], atol=1e-6)
     np.testing.assert_array_equal(back.t.numpy(), st["t"])
+
+
+def test_k4_launch_plan():
+    """G, the envs of a warp, is 32 // n (one lane an agent); two warps a
+    block; the grid is one env group a warp, cut at one wave."""
+    assert {n: tfr.launch_plan(n) for n in tfr.KERNEL_AGENTS} == {3: (10, 64), 4: (8, 64), 9: (3, 64)}
+    with pytest.raises(ValueError, match="built for n"):
+        tfr.launch_plan(5)
+    assert tfr.grid_blocks(4096, 20, 8, 132) == 205  # 410 warps
+    assert tfr.grid_blocks(4096, 6, 8, 132) == 683
+    assert tfr.grid_blocks(4096, 6, 2, 132) == 264  # one wave; the warps walk the rest
+    assert tfr.grid_blocks(1, 20, 8, 132) == 1 and tfr.grid_blocks(0, 20, 8, 132) == 1
+
+
+@pytest.mark.parametrize("n", [3, 4, 9])
+@pytest.mark.parametrize("B", [1, 7, 37, 4096])
+def test_k4_schedule_covers_each_env_once(n, B):
+    """Every env runs on exactly one group, every (env, agent) on exactly one
+    lane, a group's lanes lie in one warp in one round, and no lane holds
+    two: with one group a warp, with the grid of one wave on 132 SMs at two
+    blocks an SM, and with a few blocks walking many groups."""
+    G, threads = tfr.launch_plan(n)
+    for grid in (None, tfr.grid_blocks(B, G * threads // 32, 2, 132), 3):
+        sched = tfr.rollout_schedule_plain(n, B, grid)
+        assert (sched["env"] == 1).all() and (sched["agent"] == 1).all(), grid
+        env, agent = sched["lane_env"], sched["lane_agent"]
+        live = env >= 0
+        assert ((agent >= 0) == live).all() and (agent < n).all()
+        assert live.sum() == B * n
+        for r in range(env.shape[0]):
+            tid = np.flatnonzero(live[r])
+            assert len(set(zip(env[r, tid], agent[r, tid]))) == tid.size  # one (env, agent) a lane
+            warp = tid // 32
+            for b in np.unique(env[r, tid]):
+                on = tid[env[r, tid] == b]
+                assert on.size == n and np.unique(warp[env[r, tid] == b]).size == 1
+                assert (agent[r, on] == on % 32 % n).all()

@@ -1,8 +1,8 @@
 """Time the port's kernels on the card, against a parent checkout or by phase.
 
-    python tools/ab_pair_kernels.py [--set pair|k2k9|k5k7] [--root DIR] [--out PATH]
-    python tools/ab_pair_kernels.py [--set pair|k2k9|k5k7] --ab PARENT_DIR [--rounds R] [--out PATH]
-    python tools/ab_pair_kernels.py --phases k3|k8|k2k9|k5 [--out PATH]
+    python tools/ab_pair_kernels.py [--set pair|k2k9|k5k7|k4] [--root DIR] [--out PATH]
+    python tools/ab_pair_kernels.py [--set pair|k2k9|k5k7|k4] --ab PARENT_DIR [--rounds R] [--out PATH]
+    python tools/ab_pair_kernels.py --phases k3|k8|k2k9|k5|k4 [--out PATH]
 
 With ``--root`` (default: this checkout) it imports
 ``gym_formation_tpu_torch`` from DIR, builds its kernels, and prints one
@@ -54,6 +54,13 @@ statistics K7:
 - ``collect_ms``, ``prepare_ms``, ``update_ms`` and ``mappo_n3``: the MAPPO
   N=3 fused iteration, as for ``k2k9``.
 
+``k4``, the whole-rollout kernel K4:
+
+- ``k4_ms``: K4 at n=3, B=4096, 256 steps, ep_len 100, on the state of
+  ``chip_smoke.py``'s N=3 path (the second ``reset_state`` of a
+  ``formation_hd_env`` batch from seed 3); ``k4n9_ms``: the same at n=9;
+- ``n3``: env-steps/s of the N=3 path (one K4 call of 256 steps a window).
+
 Each kernel time is the mean of 20 calls by CUDA events after a warm-up, as
 ``chip_smoke.py: time_ms`` takes it, with the host's time a call to enqueue
 them beside (``<kernel>_enqueue_ms``): where the two meet, the host paces
@@ -91,6 +98,8 @@ timing.
   and heads alone (the scalar phase of the env threads cut out), with the
   scalar phase alone (the two layers and the heads cut out), and without
   the heads.
+- ``k4``: K4 at n=3 and n=9 (``k4``'s inputs) without the policy (a zero
+  force in its place), without the pair phase, without the reward phase.
 
 Needs a CUDA device and ``nvcc``; exits 1 without a device.
 """
@@ -476,6 +485,40 @@ def measure_k5k7(root: Path, full: bool = True) -> dict:
     return out
 
 
+def k4_state(gt, n, dev):
+    """The N=3 path's state of ``chip_smoke.py`` at n agents: the second
+    ``reset_state`` of a ``formation_hd_env`` batch of B envs from seed 3."""
+    from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+
+    v = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device=dev, seed=3)
+    v.reset_state()
+    return k4.state_to_soa(v.reset_state())
+
+
+def measure_k4(root: Path, full: bool = True) -> dict:
+    import torch
+
+    gt = _package(root)
+    from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+
+    dev = torch.device("cuda")
+    out = dict(root=str(root), device=torch.cuda.get_device_name(0))
+    for n, key in ((3, "k4"), (9, "k4n9")):
+        soa = k4_state(gt, n, dev)
+        timed(out, key, lambda: k4.fused_rollout_hd(soa, 1, length=256, ep_len=100, n=n))
+    if not full:
+        return out
+    box = [k4_state(gt, 3, dev), 0]
+
+    def window():
+        box[1] += 1
+        box[0], r = k4.fused_rollout_hd(box[0], box[1], length=256, ep_len=100, n=3)
+        return r
+
+    out["n3"], out["n3_enqueue_ms"] = rate(window, 256)
+    return out
+
+
 # measure: root -> the line; symbols: the kernels whose ptxas lines and SASS
 # loops the line carries; keys: what the A/B summary reads
 SETS = {
@@ -490,6 +533,8 @@ SETS = {
     "k5k7": dict(measure=measure_k5k7, symbols=("fused_collect_kernel", "reward_rowmajor_kernel"),
                  keys=("k5_ms", "k5_enqueue_ms", "k5n9_ms", "k7_ms", "k7_enqueue_ms", "k2_ms", "collect_ms",
                        "prepare_ms", "update_ms", "mappo_n3", "step", "step_enqueue_ms")),
+    "k4": dict(measure=measure_k4, symbols=("fused_rollout_kernel",),
+               keys=("k4_ms", "k4_enqueue_ms", "k4n9_ms", "k4n9_enqueue_ms", "n3", "n3_enqueue_ms")),
 }
 
 
@@ -567,6 +612,12 @@ K5_SCALAR = ("fused_collect.cu", K5_SCALAR_START, "      // ---- end of the scal
 K5_PRODUCTS = ("fused_collect.cu", "      // ---- layer 1\n", "      __syncthreads();\n" + K5_SCALAR_START,
                "      __syncthreads();\n" + K5_SCALAR_START)
 K5_HEADS = ("fused_collect.cu", "      // ---- heads", "      __syncthreads();\n" + K5_SCALAR_START, K5_SCALAR_START)
+K4_POLICY = ("fused_rollout.cu", "  // ---- ezpolicy", "  // ---- end of the policy\n", "  float fx = 0.f, fy = 0.f;\n")
+K4_PAIRS = ("fused_rollout.cu", "  // ---- pairs", "  // ---- end of the pairs\n", "")
+K4_COEFS = ("fused_rollout.cu", "  // ---- pair coefficients", "  // ---- end of the pair coefficients\n",
+            "  float kc[D] = {};\n")
+K4_REWARD = ("fused_rollout.cu", "  // ---- reward of the stepped state", "  // ---- end of the reward\n",
+             "  o.rew = 0.f;\n")
 
 # measure: root -> the copy's line; order: the variants in turn (the full
 # kernel first and last), each a tuple of cuts
@@ -581,6 +632,8 @@ PHASES = {
     "k5": dict(measure=lambda root: measure_k5k7(root, full=False),
                order=dict(full=(), products_alone=(K5_SCALAR,), scalar_alone=(K5_PRODUCTS,),
                           no_heads=(K5_HEADS,))),
+    "k4": dict(measure=lambda root: measure_k4(root, full=False),
+               order=dict(full=(), no_policy=(K4_POLICY,), no_pairs=(K4_COEFS, K4_PAIRS), no_reward=(K4_REWARD,))),
 }
 
 
