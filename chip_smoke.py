@@ -92,6 +92,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and K7's times at the paths' shapes.  The selectors are restored after.
 19. The other scenarios: basic_formation_env (N=3, ezpolicy) and the two
    partial scenarios (N=27, the linear policy) at B=4096, K1 once a step.
+20. K1 and K2 against their plain versions at the N=3 paths' shape (the hd
+   colliding subset of 3 agents) at B=128 and 512: random states, pairs in
+   exact contact, at K2's threshold and at zero distance, all agents in
+   contact; K1 atol = rtol = 1e-3, K2 Hausdorff atol 1e-5 and counts equal,
+   two launches bit for bit.  Each kernel's time at n=3 beside its plain
+   version's and its bound.
+21. RMAPPO N=3 path: RMAPPO(make_env("formation_hd_env", num_agents=3,
+   episode_length=25), RMAPPOConfig(), num_envs=128), the reference's tuned
+   configuration (GRU 64, chunks of 5, 10 epochs).  One warm-up and 3 timed
+   train_step calls: K1 and K2 once an env step, K3-K9 never.  Training
+   env-steps/s and the collect / prepare / update split (CUDA events); one
+   _update_recurrent on the card against the CPU from the same networks on
+   the same batch and permutations; mean_step_reward over 12 iterations.
+22. Discrete MAPPO N=3 path (the categorical head) at B=512: as phase 21,
+   and every sampled action a one-hot.
+23. Separated MAPPO N=3 path (share_policy=False) at B=512: as phase 21.
+24. eval: python -m gym_formation_tpu_torch.eval --policy ckpt --algo rmappo
+   on a checkpoint of phase 21's learner, 2 episodes on the card, finite
+   returns.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
@@ -986,6 +1005,248 @@ def phase_other_scenarios(dev, kmods):
 
         throughput(window, NUM_ENVS, WINDOW, f"{name} N={n} B={NUM_ENVS}")
 
+# -- the on-policy family at N=3 ------------------------------------------------
+RMAPPO_ENVS, MAPPO_ENVS = 128, 512  # the reference's tuned rmappo run; the discrete MAPPO run
+ONPOLICY_KINDS = ("rmappo", "discrete", "separated")
+
+
+def onpolicy_algo(kind, dev, num_envs, **cfg):
+    """The learner of an on-policy path at N=3: ``rmappo`` (the tuned
+    configuration: episodes of 25 steps, GRU 64, chunks of 5), ``discrete``
+    (MAPPO with the categorical head) or ``separated`` (MAPPO with per-agent
+    networks)."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig, RMAPPO, RMAPPOConfig
+
+    if kind == "rmappo":
+        env = gt.make_env("formation_hd_env", num_agents=3, episode_length=25)
+        return RMAPPO(env, RMAPPOConfig(**cfg), num_envs=num_envs, device=dev)
+    env = gt.make_env("formation_hd_env", num_agents=3, discrete_action=kind == "discrete")
+    return MAPPO(env, MAPPOConfig(share_policy=kind != "separated", **cfg), num_envs=num_envs, device=dev)
+
+
+def onpolicy_iterations(algo, state, g, iters, label):
+    """``iters`` train_step calls on the training tuple ``state``, each
+    closed by a host fetch of the metrics and a finiteness check."""
+    walls, host = [], {}
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        *state, m = algo.train_step(*state, g)
+        host = {k: float(v) for k, v in m.items()}
+        walls.append(time.perf_counter() - t0)
+        require(all(np.isfinite(v) for v in host.values()), f"{label}: non-finite metrics {host}")
+    return state, host, walls
+
+
+def onpolicy_split(algo, state, g):
+    """One iteration as train_step runs it, with CUDA events between
+    collect, prepare and update.  Returns the ms of each, the state and the
+    trajectory."""
+    recurrent = hasattr(algo, "_collect_recurrent")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.no_grad():
+        if recurrent:
+            ts, es, obs, carry = state
+            es, obs, carry, traj, _, last_value = algo._collect_recurrent(ts, es, obs, carry, g)
+        else:
+            ts, es, obs = state
+            es, obs, traj, _, last_value = algo._collect(ts, es, obs, g)
+    ev[1].record()
+    ts, data = algo._prepare(ts, traj, last_value)
+    ev[2].record()
+    ts, m = (algo._update_recurrent if recurrent else algo._update)(ts, data, g)
+    ev[3].record()
+    torch.cuda.synchronize()
+    require(all(np.isfinite(float(v)) for v in m.values()), "split iteration: non-finite metrics")
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+    state = [ts, es, obs] + ([carry] if recurrent else [])
+    return dict(collect=ms[0], prepare=ms[1], update=ms[2]), state, traj
+
+
+def onpolicy_card_vs_cpu(kind, dev):
+    """One update on the card and on the CPU from the same networks, on one
+    batch collected on the CPU from a state made with numpy, with the same
+    minibatch permutations (two minibatches an epoch, so that they act).
+    Tolerances of the MAPPO N=3 phase: parameters rtol 5e-3 atol 5e-5,
+    v_loss 1e-3 relative."""
+    import copy
+
+    import gym_formation_tpu_torch as gt
+
+    B, cpu_dev = 64, torch.device("cpu")
+    cpu = onpolicy_algo(kind, cpu_dev, B, num_minibatches=2)
+    card = onpolicy_algo(kind, dev, B, num_minibatches=2)
+    g = torch.Generator()
+    g.manual_seed(5)
+    nets = cpu._networks(g)
+    ts_cpu, ts_card = cpu.init_state(*copy.deepcopy(nets)), card.init_state(*copy.deepcopy(nets))
+    st = cpu.env.scenario.pre_obs(gt.state_from_numpy(injected_state(3, B, 31)))
+    obs = cpu.env.scenario.observe(st)
+    gc = torch.Generator()
+    gc.manual_seed(6)
+    recurrent = kind == "rmappo"
+    with torch.no_grad():
+        if recurrent:
+            _, _, _, traj, _, last = cpu._collect_recurrent(ts_cpu, st, obs, cpu.initial_carry(B), gc)
+        else:
+            _, _, traj, _, last = cpu._collect(ts_cpu, st, obs, gc)
+    ts_cpu, data = cpu._prepare(ts_cpu, traj, last)
+    cfg = cpu.cfg
+    M = (cfg.rollout_len // cfg.data_chunk_length) * B if recurrent else cfg.rollout_len * B
+    prng = np.random.RandomState(7)
+    perms = [torch.as_tensor(prng.permutation(M)) for _ in range(cfg.ppo_epochs)]
+    update = "_update_recurrent" if recurrent else "_update"
+    ts_cpu, m_cpu = getattr(cpu, update)(ts_cpu, data, perms=perms)
+    ts_card, m_card = getattr(card, update)(ts_card, {k: v.to(dev) for k, v in data.items()}, perms=perms)
+    for (name, x), y in zip(list(ts_card.actor.named_parameters()) + list(ts_card.critic.named_parameters()),
+                            ts_cpu.params()):
+        check_close(x.detach().cpu(), y.detach(), 5e-5, 5e-3, f"{kind} card vs CPU update: {name}")
+    v_card, v_cpu = float(m_card["v_loss"]), float(m_cpu["v_loss"])
+    require(abs(v_card - v_cpu) <= 1e-3 * abs(v_cpu), f"{kind} card vs CPU update: v_loss {v_card} vs {v_cpu}")
+    print(f"{kind} N=3 B={B} one {update} ({cfg.ppo_epochs} epochs x 2 minibatches, the same permutations): "
+          f"card and CPU agree (params rtol 5e-3 atol 5e-5, v_loss {v_card:.6f} vs {v_cpu:.6f})")
+
+
+def phase_onpolicy(dev, kmods, kind, num_envs):
+    """An on-policy path at N=3 through train_step on the card: the step-by-
+    step collection and the autograd update, K1 and K2 once an env step,
+    K3-K9 never.  Training env-steps/s (median of 3 iterations after one
+    warm-up), the split, the card against the CPU on one update, and 12
+    iterations in the loose learning band of the MAPPO N=3 phase.  Returns
+    the rate, the split, the launches and the 12-iteration learner."""
+    algo = onpolicy_algo(kind, dev, num_envs)
+    label = f"{kind} N=3 B={num_envs}"
+    require(not (algo.fused_collect or algo.structured_obs or algo.cfg.fused_update),
+            f"{label}: a kernel path of the shared Gaussian policy came on")
+    T = algo.cfg.rollout_len
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = list(algo.init(g))
+    state, _, _ = onpolicy_iterations(algo, state, g, 1, f"{label} warm-up")
+    reset_counts(*kmods)
+    state, _, walls = onpolicy_iterations(algo, state, g, TIMED_ITERS, label)
+    counts = launch_counts(kmods)
+    print(f"{label}: launches in {TIMED_ITERS} iterations {counts}")
+    for name in ("pairforce_sym", "reward_sym"):
+        require(counts[name] == T * TIMED_ITERS, f"{label}: {name} not once an env step")
+    for name in ("fused_step", "fused_rollout", "fused_collect", "fused_ppo_grad", "pairforce", "reward",
+                 "pairforce_cull"):
+        require(counts[name] == 0, f"{label}: {name} launched")
+    rate = T * num_envs / statistics.median(walls)
+    print(f"training env-steps/s {label}: {rate:.1f} "
+          f"(iteration walls {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms)")
+    split, state, traj = onpolicy_split(algo, state, g)
+    print(f"{label} iteration: {fmt_split(split)}")
+    if kind == "discrete":
+        a = traj["action"]
+        require(bool(((a == 0) | (a == 1)).all()) and bool((a.sum(-1) == 1).all()),
+                f"{label}: sampled actions are not one-hots")
+        print(f"{label}: the {a.shape[0] * a.shape[1] * a.shape[2]} sampled actions of an iteration are one-hots")
+
+    onpolicy_card_vs_cpu(kind, dev)
+
+    learn = onpolicy_algo(kind, dev, num_envs)
+    gl = torch.Generator(device=dev)
+    gl.manual_seed(1)
+    lstate = list(learn.init(gl))
+    rewards = []
+    for _ in range(12):
+        *lstate, m = learn.train_step(*lstate, gl)
+        rewards.append(float(m["mean_step_reward"]))
+    require(all(np.isfinite(rewards)) and rewards[-1] > rewards[0] - 2.0,
+            f"{label}: mean_step_reward left the band: {rewards}")
+    print(f"{label} 12 iterations: mean_step_reward {rewards[0]:.4f} -> {rewards[-1]:.4f}")
+    return dict(rate=rate, split=split, counts=counts, learner=(learn, lstate, gl))
+
+
+def phase_eval(learner):
+    """eval of a checkpoint written by the RMAPPO path, on the card, in a
+    process of its own, as a user runs it: 2 episodes, finite returns."""
+    import shutil
+
+    from gym_formation_tpu_torch.utils import save_checkpoint
+
+    algo, state, g = learner
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpt = os.path.join(root, "build", "chip_smoke_rmappo", "ckpt")
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    save_checkpoint(ckpt, state[0].update_i, algo.checkpoint_tree(*state, g))
+    cmd = [sys.executable, "-m", "gym_formation_tpu_torch.eval", "--policy", "ckpt", "--algo", "rmappo",
+           "--ckpt", ckpt, "--episodes", "2", "--episode-length", "25"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    require(out.returncode == 0, f"eval exited {out.returncode}: {out.stderr[-2000:]}")
+    returns = [float(line.split("return=")[1].split()[0]) for line in out.stdout.splitlines() if "return=" in line]
+    require(len(returns) == 2 and all(np.isfinite(returns)), f"eval: returns {returns}")
+    for line in out.stdout.splitlines():
+        print(f"  eval: {line}")
+    print(f"eval --policy ckpt --algo rmappo: 2 episodes on the card in {time.perf_counter() - t0:.2f} s "
+          f"(process included), returns {returns}")
+
+
+def phase_k1k2_n3(dev, rng):
+    """K1 and K2 against their plain versions at the N=3 paths' shape (the
+    hd env's colliding subset: 3 agents of size 0.03), B=128 and 512:
+    random states, pairs in exact contact, in deep penetration and at zero
+    distance; K1 atol = rtol = 1e-3, K2 Hausdorff atol 1e-5, counts equal,
+    two launches bit for bit.  Returns each kernel's max error and its time
+    beside its plain version's and its bound at B=512."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.core.physics import _collide_subset
+    from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
+    from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
+
+    n = 3
+    _, _, _, cfg = _collide_subset(gt.make_env("formation_hd_env", num_agents=n).cfg)
+    p = k1._params(cfg)
+    errs = {"k1": 0.0, "k2": 0.0}
+    f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
+    for B in (RMAPPO_ENVS, MAPPO_ENVS):
+        contact = rng.uniform(-0.5, 0.5, (B, n, 2))
+        third = B // 3
+        contact[:third, 1] = contact[:third, 0] + [0.06, 0.0]  # exact contact (K1: 2 x size)
+        contact[third:2 * third, 1] = contact[third:2 * third, 0] + [0.0, 0.03]  # at K2's threshold
+        contact[2 * third:, 2] = contact[2 * third:, 1]  # zero distance
+        for label, pos in (("random", rng.uniform(-0.5, 0.5, (B, n, 2))), ("contact", contact),
+                           ("all in contact", rng.uniform(-0.02, 0.02, (B, n, 2)))):
+            pos = f(pos)
+            got = k1.collision_forces_sym(pos, cfg)
+            want = k1.collision_forces_sym_plain(pos, **p)
+            again = k1.collision_forces_sym(pos, cfg)
+            torch.cuda.synchronize()
+            require(bool(torch.isfinite(got).all()), f"K1 n=3 {label} B={B}: non-finite forces")
+            errs["k1"] = max(errs["k1"], check_close(got, want, 1e-3, 1e-3, f"K1 n=3 {label} B={B}"))
+            require(torch.equal(got, again), f"K1 n=3 {label} B={B}: two launches differ")
+            ish = rng.uniform(-1, 1, (B, n, 2))
+            ish = f(ish - ish.mean(1, keepdims=True))
+            h, nc = k2.hd_reward_stats_sym(pos, ish, thresh=THRESH)
+            h_p, nc_p = k2.hd_reward_stats_sym_plain(pos, ish, thresh=THRESH)
+            h2, nc2 = k2.hd_reward_stats_sym(pos, ish, thresh=THRESH)
+            errs["k2"] = max(errs["k2"], check_close(h, h_p, 1e-5, 0.0, f"K2 n=3 {label} B={B} haus"))
+            require(torch.equal(nc, nc_p), f"K2 n=3 {label} B={B}: counts differ")
+            require(torch.equal(h, h2) and torch.equal(nc, nc2), f"K2 n=3 {label} B={B}: two launches differ")
+            if label != "random":
+                require(int(nc.sum()) > 0, f"K2 n=3 {label} B={B}: no collisions")
+            print(f"K1/K2 n=3 {label} B={B}: K1 max abs err {max_err(got, want):.3e} (atol=rtol=1e-3), "
+                  f"K2 haus {max_err(h, h_p):.3e} (atol 1e-5), counts equal ({int(nc.sum())} collisions), "
+                  f"two launches bit for bit")
+    B = MAPPO_ENVS
+    pos, ish = f(rng.uniform(-0.5, 0.5, (B, n, 2))), f(rng.uniform(-1, 1, (B, n, 2)))
+    out = {}
+    for name, kern, plain, bnd in (
+            ("K1", lambda: k1.collision_forces_sym(pos, cfg), lambda: k1.collision_forces_sym_plain(pos, **p),
+             bound(16 * B * n, B * pair_ops(n * (n - 1)))),
+            ("K2", lambda: k2.hd_reward_stats_sym(pos, ish, thresh=THRESH),
+             lambda: k2.hd_reward_stats_sym_plain(pos, ish, thresh=THRESH),
+             bound(16 * B * n + 4 * B + 4 * B * n, B * stat_ops(n)))):
+        ms, plain_ms = time_pair(kern, plain)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+        print(f"{name} n=3 B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
+    return errs, out
+
 
 def main() -> int:
     # -- 1. environment --------------------------------------------------
@@ -1389,6 +1650,21 @@ def main() -> int:
     # -- 19. the other scenarios --------------------------------------------
     phase("other scenarios")
     phase_other_scenarios(dev, kmods)
+
+    # -- 20. K1 and K2 at n=3 -------------------------------------------------
+    phase("K1 and K2 at n=3 vs plain")
+    n3_errs, n3_times = phase_k1k2_n3(dev, rng)
+    k1_err, k2_err = max(k1_err, n3_errs["k1"]), max(k2_err, n3_errs["k2"])
+
+    # -- 21-23. the on-policy family at N=3 -----------------------------------
+    onpolicy = {}
+    for kind, envs in zip(ONPOLICY_KINDS, (RMAPPO_ENVS, MAPPO_ENVS, MAPPO_ENVS)):
+        phase(f"{kind} N=3 path")
+        onpolicy[kind] = phase_onpolicy(dev, kmods, kind, envs)
+
+    # -- 24. eval -------------------------------------------------------------
+    phase("eval of an RMAPPO checkpoint")
+    phase_eval(onpolicy["rmappo"]["learner"])
 
     # bounds from this run's shapes (see bound())
     B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]

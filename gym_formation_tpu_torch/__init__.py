@@ -31,6 +31,7 @@ from .env import (
     FormationEnv,
     VecFormationEnv,
     rollout,
+    rollout_stateonly,
     rollout_statepolicy,
     rollout_statepolicy_fused,
     rollout_statepolicy_rewardsum,
@@ -95,6 +96,7 @@ __all__ = [
     "make_scenario",
     "register",
     "rollout",
+    "rollout_stateonly",
     "rollout_statepolicy",
     "rollout_statepolicy_rewardsum",
     "rollout_statepolicy_fused",

@@ -1,10 +1,13 @@
-"""MAPPO: multi-agent PPO with a shared policy and a centralized critic.
+"""MAPPO: multi-agent PPO with a centralized critic.
 
 Counterpart of ``gym_formation_tpu/algos/mappo.py``: collection of
 ``rollout_len`` steps on ``num_envs`` envs, GAE in raw return space with a
 running value normalizer, then ``ppo_epochs`` × ``num_minibatches`` clipped
-PPO updates of the GaussianActor and the ValueCritic by one global-norm
-clipped Adam.  The JAX package jits the whole iteration into one program;
+PPO updates of the actor and the critic by one global-norm clipped Adam.
+The actor is a diagonal Gaussian, or a categorical head on a
+``discrete_action`` env; with ``share_policy=False`` every agent has its own
+actor and critic, stacked into batched products, and the critic gives one
+value an agent.  The JAX package jits the whole iteration into one program;
 here :meth:`MAPPO.train_step` is eager PyTorch (no ``torch.compile``) and
 keeps every metric on the device, so an iteration never waits for the host.
 
@@ -23,10 +26,10 @@ Three collection paths, chosen as the JAX package chooses them:
 
 and two update paths: autograd of :meth:`MAPPO._loss` (with ``grad_accum``,
 ``remat`` and minibatches), or kernel K9 (``ops/kernels/fused_ppo_grad.py``)
-for each epoch's whole gradient (``fused_update``).
-
-Only the shared continuous policy is ported: ``share_policy=False`` and the
-categorical head raise ``NotImplementedError``.
+for each epoch's whole gradient (``fused_update``).  K5, K9 and the
+structured path hold the shared Gaussian policy only: their auto gates stay
+off for a categorical head or per-agent networks, and forcing one there
+raises ``ValueError`` (the JAX package asserts).
 """
 
 from __future__ import annotations
@@ -38,26 +41,33 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .. import _device, spaces
+from .. import _device
 from ..env import FormationEnv, benchmark_means
 from ..models.networks import (
     GaussianActor,
+    LogitsActor,
+    StackedActor,
+    StackedValueCritic,
     ValueCritic,
     actor_from_flax,
+    categorical_entropy,
+    categorical_logp,
+    categorical_sample,
     critic_from_flax,
     gaussian_entropy,
     gaussian_logp,
     gaussian_sample,
+    logits_actor_from_flax,
+    onehot_from_logits,
     soft_bound,
+    stacked_actor_from_flax,
+    stacked_critic_from_flax,
 )
 from ..models.structured_obs import actor_forward_structured, critic_forward_structured
 from ..ops.kernels import fused_collect as k5
 from ..ops.kernels import fused_ppo_grad as k9
 from ..ops.kernels.fused_rollout import soa_to_state, state_to_soa
 from .optim import AdamState, ClipAdam
-
-_LEFT_OUT = "is not yet ported (ROADMAP: left out of the MAPPO slice)"
-
 
 @dataclasses.dataclass(frozen=True)
 class MAPPOConfig:
@@ -127,8 +137,8 @@ class ValueNorm:
 
 @dataclasses.dataclass
 class MAPPOState:
-    actor: GaussianActor
-    critic: ValueCritic
+    actor: torch.nn.Module
+    critic: torch.nn.Module
     log_alpha: Optional[torch.nn.Parameter]  # the auto_entropy coefficient (signed)
     opt_state: AdamState
     value_norm: ValueNorm
@@ -146,16 +156,15 @@ def huber(x: torch.Tensor, delta: float) -> torch.Tensor:
 
 
 class MAPPO:
-    """Shared-policy MAPPO over a batch of ``num_envs`` :class:`FormationEnv`
-    envs on ``device`` (the card unless ``device="cpu"`` is given), with
-    parameters in ``dtype``."""
+    """MAPPO over a batch of ``num_envs`` :class:`FormationEnv` envs on
+    ``device`` (the card unless ``device="cpu"`` is given), with parameters
+    in ``dtype``."""
+
+    # K5, K9 and the structured path may serve this learner (RMAPPO: never)
+    kernel_paths = True
 
     def __init__(self, env: FormationEnv, cfg: MAPPOConfig = MAPPOConfig(), num_envs: int = 128,
                  device="cuda", dtype: torch.dtype = torch.float32):
-        if not cfg.share_policy:
-            raise NotImplementedError(f"share_policy=False (per-agent networks) {_LEFT_OUT}")
-        if not all(isinstance(s, spaces.Box) for s in env.action_space):
-            raise NotImplementedError(f"the categorical head (discrete actions) {_LEFT_OUT}")
         self.env = env
         self.cfg = cfg
         self.num_envs = num_envs
@@ -164,24 +173,36 @@ class MAPPO:
         self.n_agents = env.num_agents
         self.obs_dim = env.scenario.obs_dim
         self.act_dim = env.act_dim
+        # a discrete env gets a categorical head; the index input stays a
+        # Gaussian over the one index column, as in the JAX package
+        self.discrete = bool(env.discrete_action and not env.discrete_action_input)
         hd = env.scenario.name == "formation_hd_env"
+        # the policy K5, K9 and the structured path hold
+        shared_gauss = self.kernel_paths and cfg.share_policy and not self.discrete
+        kernel_free = ("RMAPPO takes the autograd paths only" if not self.kernel_paths else
+                       "needs the shared continuous policy (share_policy=True, a continuous env)")
+        for flag in ("fused_collect", "structured_obs", "fused_update"):
+            if getattr(cfg, flag) and not shared_gauss:
+                raise ValueError(f"{flag}=True {kernel_free}")
         fc = cfg.fused_collect
         if fc is None:
             # auto: on exactly where K5's preconditions hold.  The JAX gate's
             # num_envs % 512 == 0 is the TPU kernel's block size; K5 on the
             # card takes any batch, so it is dropped here.
-            fc = (hd and env.auto_reset and not env.benchmark
+            fc = (hd and shared_gauss and env.auto_reset and not env.benchmark
                   and self.device.type == "cuda" and self.n_agents in k5.KERNEL_AGENTS)
         self.fused_collect = bool(fc)
         so = cfg.structured_obs
         if so is None:
-            so = (hd and env._all_silent and env.scenario.obs_dim == 6 * self.n_agents
+            so = (hd and shared_gauss and env._all_silent and env.scenario.obs_dim == 6 * self.n_agents
                   and self.n_agents >= 32 and not cfg.fused_update)
         self.structured_obs = bool(so)
         if self.structured_obs:
             assert hd and env._all_silent, "structured_obs needs the hd obs layout + shared continuous policy"
             assert not cfg.fused_update, "structured_obs excludes fused_update"
             self.fused_collect = False  # structured collection subsumes it
+        if cfg.auto_entropy and self.discrete and cfg.entropy_target is None:
+            raise ValueError("set an explicit entropy_target for categorical policies")
         if cfg.fused_update:
             assert cfg.grad_accum == 1 and not cfg.remat, (
                 "fused_update computes whole-batch gradients in one kernel; "
@@ -194,7 +215,17 @@ class MAPPO:
         self.seed_generator = torch.Generator()
 
     # -- setup --------------------------------------------------------------
-    def init_state(self, actor: GaussianActor, critic: ValueCritic,
+    def _networks(self, generator: Optional[torch.Generator] = None):
+        """A fresh (actor, critic) of the configured kind."""
+        cfg, N, do = self.cfg, self.n_agents, self.obs_dim
+        if not cfg.share_policy:
+            return (StackedActor(N, do, self.act_dim, cfg.hidden, self.discrete, generator),
+                    StackedValueCritic(N, do * N, cfg.hidden, generator))
+        actor = (LogitsActor(do, self.act_dim, cfg.hidden, generator) if self.discrete
+                 else GaussianActor(do, self.act_dim, cfg.hidden, generator=generator))
+        return actor, ValueCritic(do * N, cfg.hidden, generator=generator)
+
+    def init_state(self, actor: torch.nn.Module, critic: torch.nn.Module,
                    log_alpha: Optional[float] = None) -> MAPPOState:
         """A fresh training state around the given networks (moved to the
         learner's device and dtype): Adam at step 0, a fresh value norm."""
@@ -213,8 +244,12 @@ class MAPPO:
         """A fresh training state holding the JAX package's ``params``
         (``{'actor': flax tree, 'critic': flax tree[, 'log_alpha']}``)."""
         la = params.get("log_alpha")
-        return self.init_state(actor_from_flax(params["actor"], self.dtype),
-                               critic_from_flax(params["critic"], self.dtype),
+        if not self.cfg.share_policy:
+            actor_fn, critic_fn = stacked_actor_from_flax, stacked_critic_from_flax
+        else:
+            actor_fn = logits_actor_from_flax if self.discrete else actor_from_flax
+            critic_fn = critic_from_flax
+        return self.init_state(actor_fn(params["actor"], self.dtype), critic_fn(params["critic"], self.dtype),
                                None if la is None else float(la))
 
     def init(self, generator: torch.Generator):
@@ -224,10 +259,7 @@ class MAPPO:
         would be 1.45 GB)."""
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
         self.seed_generator.manual_seed(seed)
-        g = self.seed_generator
-        actor = GaussianActor(self.obs_dim, self.act_dim, self.cfg.hidden, generator=g)
-        critic = ValueCritic(self.obs_dim * self.n_agents, self.cfg.hidden, generator=g)
-        ts = self.init_state(actor, critic)
+        ts = self.init_state(*self._networks(self.seed_generator))
         if self.structured_obs:
             return ts, self.env.reset_state(generator, self.num_envs), None
         env_state, obs = self.env.reset(generator, self.num_envs)
@@ -237,13 +269,33 @@ class MAPPO:
         """K5's PRNG seed for one collection."""
         return int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.seed_generator))
 
+    # distribution ops dispatched on the head: a Gaussian's dist is
+    # (mean, log_std), a categorical's its logits
+    def _dist_sample(self, generator, dist):
+        if self.discrete:
+            return categorical_sample(generator, dist)
+        return gaussian_sample(generator, *dist)
+
+    def _dist_logp(self, dist, action):
+        if self.discrete:
+            return categorical_logp(dist, action)
+        return gaussian_logp(*dist, action)
+
+    def _dist_entropy(self, dist):
+        if self.discrete:
+            return categorical_entropy(dist).mean()
+        return gaussian_entropy(dist[1]).mean()
+
+    def _dist_mode(self, dist):
+        return onehot_from_logits(dist) if self.discrete else dist[0]
+
     @torch.no_grad()
     def act(self, ts: MAPPOState, obs: torch.Tensor, generator: Optional[torch.Generator] = None,
             deterministic: bool = True) -> torch.Tensor:
-        mean, log_std = ts.actor(obs.to(self.dtype))
+        dist = ts.actor(obs.to(self.dtype))
         if deterministic or generator is None:
-            return mean
-        return gaussian_sample(generator, mean, log_std)
+            return self._dist_mode(dist)
+        return self._dist_sample(generator, dist)
 
     # -- rollout ------------------------------------------------------------
     def _env_reward(self, out) -> torch.Tensor:
@@ -261,10 +313,10 @@ class MAPPO:
         steps, bench = [], []
         for _ in range(self.cfg.rollout_len):
             x = obs.to(self.dtype)
-            value = ts.critic(x.reshape(B, N * self.obs_dim))
-            mean, log_std = ts.actor(x)
-            action = gaussian_sample(generator, mean, log_std)
-            logp = gaussian_logp(mean, log_std, action)
+            value = ts.critic(x.reshape(B, N * self.obs_dim))  # [B], or [B, N] per agent
+            dist = ts.actor(x)
+            action = self._dist_sample(generator, dist)
+            logp = self._dist_logp(dist, action)
             env_state, out = self.env.step(env_state, action, generator)
             # share_obs is not stored: the update derives it from obs
             steps.append(dict(obs=x, action=action, logp=logp, value=value,
@@ -333,6 +385,8 @@ class MAPPO:
             values, last_value = vn.denormalize(values), vn.denormalize(last_value)
         gamma, lam = self.cfg.gamma, self.cfg.gae_lambda
         reward, done = traj["reward"], traj["done"]
+        if values.dim() == 3:  # per-agent critics: the env's reward and done for every agent
+            reward, done = reward[..., None], done[..., None]
         gae = torch.zeros_like(last_value)
         next_value = last_value
         adv = [None] * values.shape[0]
@@ -351,11 +405,11 @@ class MAPPO:
         cfg = self.cfg
         if "obs" in batch:
             obs = batch["obs"]
-            mean, log_std = ts.actor(obs)
+            dist = ts.actor(obs)
             value = ts.critic(obs.reshape(obs.shape[0], -1))  # share_obs, derived
         else:  # structured: state parts instead of observations
-            (mean, log_std), value = self._structured_dist_value(ts, batch)
-        logp = gaussian_logp(mean, log_std, batch["action"])
+            dist, value = self._structured_dist_value(ts, batch)
+        logp = self._dist_logp(dist, batch["action"])
         # the clamp keeps exp() finite when the policy has moved far
         ratio = torch.exp(torch.clamp(logp - batch["logp"], -20.0, 20.0))
         adv = batch["adv"]
@@ -364,7 +418,7 @@ class MAPPO:
         pg1 = ratio * adv
         pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
         pg_loss = -torch.minimum(pg1, pg2).mean()
-        entropy = gaussian_entropy(log_std).mean()
+        entropy = self._dist_entropy(dist)
         target, v_old = batch["target"], batch["value"]
         v_clip = v_old + torch.clamp(value - v_old, -cfg.clip_eps, cfg.clip_eps)
         v_loss = torch.maximum(huber(value - target, cfg.huber_delta),
@@ -507,20 +561,25 @@ class MAPPO:
         return grads, metrics
 
     @torch.no_grad()
-    def _prepare(self, ts: MAPPOState, traj, last_value):
-        """GAE, the value-norm update and flattening: the trajectory → the
-        flat update batch."""
-        cfg = self.cfg
+    def _targets(self, ts: MAPPOState, traj, last_value):
+        """GAE and the value-norm update (in ``ts``): the normalized
+        advantages and the value targets, [T, B] (or [T, B, N] per agent)."""
         adv, returns = self._gae(ts, traj, last_value)
         vn = ts.value_norm
-        if cfg.use_value_norm:
+        if self.cfg.use_value_norm:
             vn = vn.update(returns)
             target = vn.normalize(returns)
         else:
             target = returns
         ts.value_norm = vn
-        adv_n = (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-5)
-        M = cfg.rollout_len * self.num_envs
+        return (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-5), target
+
+    @torch.no_grad()
+    def _prepare(self, ts: MAPPOState, traj, last_value):
+        """GAE, the value-norm update and flattening: the trajectory → the
+        flat update batch."""
+        adv_n, target = self._targets(ts, traj, last_value)
+        M = self.cfg.rollout_len * self.num_envs
         flat = lambda x: x.reshape((M,) + tuple(x.shape[2:]))
         keys = (("apos", "avel", "ishape", "ivel") if self.structured_obs else ("obs",)) + (
             "action", "logp", "value")
@@ -557,6 +616,7 @@ class MAPPO:
         :func:`~gym_formation_tpu_torch.utils.checkpoint.save_checkpoint`."""
         vn = ts.value_norm
         return {
+            "config": dataclasses.asdict(self.cfg),
             "actor": ts.actor.state_dict(), "critic": ts.critic.state_dict(),
             "log_alpha": None if ts.log_alpha is None else ts.log_alpha.detach(),
             "adam": {"mu": ts.opt_state.mu, "nu": ts.opt_state.nu, "count": ts.opt_state.count},
@@ -568,13 +628,10 @@ class MAPPO:
             "seed_generator": self.seed_generator.get_state(),
         }
 
-    def restore_tree(self, tree: Dict, generator: torch.Generator):
-        """Inverse of :meth:`checkpoint_tree` into fresh objects: returns
-        ``(ts, env_state, obs)`` and sets both generators' states."""
-        from ..core.types import EnvState
-
-        actor = GaussianActor(self.obs_dim, self.act_dim, self.cfg.hidden)
-        critic = ValueCritic(self.obs_dim * self.n_agents, self.cfg.hidden)
+    def state_from_tree(self, tree: Dict) -> MAPPOState:
+        """The training state (networks, Adam, value norm, iteration) of a
+        :meth:`checkpoint_tree`, on the learner's device."""
+        actor, critic = self._networks()
         actor.load_state_dict(tree["actor"])
         critic.load_state_dict(tree["critic"])
         la = tree["log_alpha"]
@@ -585,8 +642,16 @@ class MAPPO:
                                  count=int(a["count"]))
         ts.value_norm = ValueNorm(**{k: dev(v) for k, v in tree["value_norm"].items()})
         ts.update_i = int(tree["update_i"])
-        env_state = EnvState(**{k: dev(v) for k, v in tree["env_state"].items()})
-        obs = None if tree["obs"] is None else dev(tree["obs"])
+        return ts
+
+    def restore_tree(self, tree: Dict, generator: torch.Generator):
+        """Inverse of :meth:`checkpoint_tree` into fresh objects: returns
+        ``(ts, env_state, obs)`` and sets both generators' states."""
+        from ..core.types import EnvState
+
+        ts = self.state_from_tree(tree)
+        env_state = EnvState(**{k: v.to(self.device) for k, v in tree["env_state"].items()})
+        obs = None if tree["obs"] is None else tree["obs"].to(self.device)
         generator.set_state(tree["generator"])
         self.seed_generator.set_state(tree["seed_generator"])
         return ts, env_state, obs

@@ -32,6 +32,12 @@ from .models.bfs import num_layers
 from .ops.kernels import fused_step, reward_sym
 
 
+# Discrete action index → movement direction, the ``discrete_action_input``
+# decoding (0: noop, 1: −x, 2: +x, 3: −y, 4: +y).
+_DISCRETE_MOVES = np.array(
+    [[0.0, 0.0], [-1.0, 0.0], [1.0, 0.0], [0.0, -1.0], [0.0, 1.0]]
+)
+
 BENCHMARK_KEYS = ("reward", "collisions", "min_dists", "occupied_landmarks")
 
 
@@ -62,9 +68,12 @@ class FormationEnv:
       scenario: scenario instance (see :mod:`gym_formation_tpu_torch.envs`).
       benchmark: include the benchmark_data quartet in ``info``.
       auto_reset: draw a fresh episode inside ``step`` where one ends.
-
-    Only the continuous action decoding is ported; the discrete decodings
-    of the JAX package raise ``NotImplementedError``.
+      discrete_action: 5-way one-hot movement actions, ``u = (a1 − a2,
+        a3 − a4)``, followed by the comm slice.
+      discrete_action_input: actions are integer indices [B, N, 1] into
+        the five moves (noop, −x, +x, −y, +y).
+      force_discrete_action: continuous actions snapped to a one-hot over
+        the first ``dim_p`` entries (their argmax) before scaling.
     """
 
     def __init__(
@@ -76,14 +85,13 @@ class FormationEnv:
         discrete_action_input: bool = False,
         force_discrete_action: bool = False,
     ):
-        if discrete_action or discrete_action_input or force_discrete_action:
-            raise NotImplementedError(
-                "discrete and forced-discrete action decodings are not yet ported"
-            )
         self.scenario = scenario
         self.cfg = cfg = scenario.cfg
         self.benchmark = benchmark
         self.auto_reset = auto_reset
+        self.discrete_action = discrete_action
+        self.discrete_action_input = discrete_action_input
+        self.force_discrete_action = force_discrete_action
         n = cfg.n_agents
         self.num_agents = n
         self.world_length = cfg.world_length
@@ -94,11 +102,15 @@ class FormationEnv:
         self.action_space = []
         self.observation_space = []
         for i in range(n):
-            u_space = spaces.Box(-cfg.u_range, cfg.u_range, (cfg.dim_p,))
+            if discrete_action:
+                u_space = spaces.Discrete(cfg.dim_p * 2 + 1)
+            else:
+                u_space = spaces.Box(-cfg.u_range, cfg.u_range, (cfg.dim_p,))
             if cfg.silent[i]:
                 self.action_space.append(u_space)
             else:
-                c_space = spaces.Box(0.0, 1.0, (cfg.dim_c,))
+                c_space = (spaces.Discrete(cfg.dim_c) if discrete_action
+                           else spaces.Box(0.0, 1.0, (cfg.dim_c,)))
                 self.action_space.append(spaces.Tuple((u_space, c_space)))
             self.observation_space.append(
                 spaces.Box(-np.inf, np.inf, (scenario.obs_dim,))
@@ -111,14 +123,29 @@ class FormationEnv:
     @property
     def act_dim(self) -> int:
         """Flat per-agent action width fed to :meth:`step`."""
-        return self.cfg.dim_p + (0 if self._all_silent else self.cfg.dim_c)
+        if self.discrete_action_input:
+            return 1
+        move = 5 if self.discrete_action else self.cfg.dim_p
+        return move + (0 if self._all_silent else self.cfg.dim_c)
 
     def _decode_actions(self, actions: torch.Tensor):
         """[B, N, act_dim] → control u [B, N, dim_p] (sensitivity-scaled)
         and the comm action (or None)."""
         cfg = self.cfg
-        u = actions[..., : cfg.dim_p]
-        comm = None if self._all_silent else actions[..., cfg.dim_p : cfg.dim_p + cfg.dim_c]
+        comm = None
+        if self.discrete_action_input:
+            moves = _device.const(_DISCRETE_MOVES, actions, self.scenario.dtype)
+            u = moves[actions[..., 0].long()]
+        elif self.discrete_action:
+            u = torch.stack([actions[..., 1] - actions[..., 2], actions[..., 3] - actions[..., 4]], -1)
+            if not self._all_silent:
+                comm = actions[..., 5 : 5 + cfg.dim_c]
+        else:
+            u = actions[..., : cfg.dim_p]
+            if self.force_discrete_action:
+                u = torch.nn.functional.one_hot(u.argmax(-1), cfg.dim_p).to(u.dtype)
+            if not self._all_silent:
+                comm = actions[..., cfg.dim_p : cfg.dim_p + cfg.dim_c]
         return u * _device.const(self._sensitivity, u)[:, None], comm
 
     def reset_state(self, generator: torch.Generator, num_envs: int) -> EnvState:
@@ -135,6 +162,10 @@ class FormationEnv:
         if generator is None and (self.auto_reset or cfg.has_noise()):
             raise ValueError("this env draws random numbers in step: pass a generator")
         u, comm = self._decode_actions(actions)
+        if scen.scripted_mask is not None:
+            # scripted agents override the policy's control
+            mask = _device.const(scen.scripted_mask, u, torch.bool)[:, None]
+            u = torch.where(mask, scen.scripted_actions(state).to(u.dtype), u)
         pos, vel = world_step(
             state.pos, state.vel, u.to(state.pos.dtype), cfg,
             generator if cfg.has_noise() else None,
@@ -182,7 +213,11 @@ class FormationEnv:
         return self._step(state, actions, generator, with_obs=False)
 
     def sample_actions(self, generator: torch.Generator, num_envs: int) -> torch.Tensor:
-        """Uniform random joint actions [B, N, act_dim]."""
+        """Uniform random joint actions [B, N, act_dim]: move indices
+        [B, N, 1] in 0..4 under ``discrete_action_input``."""
+        if self.discrete_action_input:
+            return torch.randint(0, 5, (num_envs, self.num_agents, 1), generator=generator,
+                                 device=generator.device)
         u = torch.rand(
             (num_envs, self.num_agents, self.act_dim),
             generator=generator, device=generator.device, dtype=self.scenario.dtype,
@@ -208,6 +243,19 @@ class VecFormationEnv:
     def reset_state(self) -> EnvState:
         """Fresh episodes without the [B, N, 6N] observations."""
         return self.env.reset_state(self.generator, self.num_envs)
+
+    def reset_choose(self, state: EnvState, obs: torch.Tensor, choose: torch.Tensor):
+        """Fresh episodes for the envs where ``choose`` [B] is True; the
+        others keep their state and observation bit for bit.
+
+        The generator is consumed as by one :meth:`reset`: one draw of
+        ``reset_state`` for all B envs, whether chosen or not, then a select
+        on the device (as the in-step auto-reset does), so that no host
+        read of ``choose`` is needed.  Returns ``(state, obs)``."""
+        choose = torch.as_tensor(choose, dtype=torch.bool, device=self.device)
+        fresh = self.env.reset_state(self.generator, self.num_envs)
+        obs = torch.where(choose[:, None, None], self.env.scenario.observe(fresh), obs)
+        return _select(choose, fresh, state), obs
 
     def step(self, state: EnvState, actions: torch.Tensor):
         """state, actions [B, N, act_dim] → (state, StepOut)."""
@@ -246,6 +294,25 @@ def rollout(
         obs = out.obs
         outs.append(out)
     return (state, obs), _stack_outs(outs)
+
+
+def rollout_stateonly(
+    env: FormationEnv,
+    policy_fn: Callable,
+    state: EnvState,
+    generator: torch.Generator,
+    length: int,
+):
+    """:func:`rollout` carrying only the state: the observation is rebuilt
+    from the state each step (``policy_fn(obs, generator) -> actions``)
+    instead of carried between steps, so one observation is alive at a
+    time.  Returns the final state and the per-step rewards [T, B, N]."""
+    scen, rewards = env.scenario, []
+    for _ in range(length):
+        actions = policy_fn(scen.observe(scen.pre_obs(state)), generator)
+        state, out = env.step_state(state, actions, generator)
+        rewards.append(out.reward)
+    return state, torch.stack(rewards)
 
 
 def rollout_statepolicy(

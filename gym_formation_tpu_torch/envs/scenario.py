@@ -99,6 +99,16 @@ class Scenario:
         """State adjustment made once after obs and reward (default: none)."""
         return state
 
+    # Scripted agents: where ``scripted_mask`` (numpy [n_agents] bool) is
+    # True, the env steps :meth:`scripted_actions` instead of the policy's
+    # control.
+    scripted_mask = None
+
+    def scripted_actions(self, state: EnvState) -> torch.Tensor:
+        """Control of the scripted agents [B, n_agents, dim_p]; rows where
+        ``scripted_mask`` is False are ignored."""
+        raise NotImplementedError
+
     def benchmark(self, state: EnvState) -> Dict[str, torch.Tensor]:
         """The reward/collisions/min_dists/occupied_landmarks quartet, each
         [B, N].  ``collisions`` counts self, as the original does."""

@@ -1,16 +1,20 @@
-"""The MAPPO networks in PyTorch.
+"""The on-policy networks in PyTorch.
 
-Counterpart of ``gym_formation_tpu/models/networks.py`` (the parts MAPPO
-uses): a ReLU MLP trunk with orthogonal init, the diagonal-Gaussian actor
-with a state-independent, soft-bounded log-std, and the centralized value
-critic.  Layer names follow flax's (``MLP_0/Dense_k``, ``Dense_0`` for the
-head, ``log_std``), so that :func:`actor_from_flax` / :func:`critic_from_flax`
-and their inverses carry weights across the two packages.  flax stores a
-Dense kernel as ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``.
+Counterpart of ``gym_formation_tpu/models/networks.py`` (the parts MAPPO and
+RMAPPO use): a ReLU MLP trunk with orthogonal init, the diagonal-Gaussian
+actor with a state-independent, soft-bounded log-std, the logits actor of
+the categorical head, the centralized value critic, their per-agent stacked
+forms (``share_policy=False``), and the GRU actor and critic.  Parameter
+names map onto flax's paths (``MLP_0/Dense_k``, ``Dense_0`` for the head,
+``log_std``, ``GRUCell_0``), so that the ``*_from_flax`` functions and
+:func:`to_flax` carry weights across the two packages.  flax stores a Dense
+kernel as ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``, and a
+stacked layer's ``kernel`` is flax's ``[N, in, out]`` as it is.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -72,6 +76,19 @@ class GaussianActor(nn.Module):
         return mean, self.bounded_log_std().expand_as(mean)
 
 
+class LogitsActor(nn.Module):
+    """Categorical policy: ``obs → logits`` over ``n_actions``."""
+
+    def __init__(self, obs_dim: int, n_actions: int, hidden: Sequence[int] = (64, 64),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mlp = MLP(obs_dim, hidden, generator)
+        self.head = _linear(hidden[-1], n_actions, 0.01, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.head(self.mlp(obs))
+
+
 class ValueCritic(nn.Module):
     """Centralized value head: ``share_obs [..., N·do] → value [...]``."""
 
@@ -83,6 +100,186 @@ class ValueCritic(nn.Module):
 
     def forward(self, share_obs: torch.Tensor) -> torch.Tensor:
         return self.head(self.mlp(share_obs)).squeeze(-1)
+
+
+class StackedDense(nn.Module):
+    """N dense layers, one an agent, in one batched product: ``kernel``
+    [N, in, out] (flax's layout), ``bias`` [N, out].  The input is
+    [..., N, in], or [..., in] shared by every agent (``shared_input``);
+    the output [..., N, out]."""
+
+    def __init__(self, n: int, fan_in: int, fan_out: int, gain: float,
+                 generator: Optional[torch.Generator] = None, shared_input: bool = False):
+        super().__init__()
+        self.shared_input = shared_input
+        self.kernel = nn.Parameter(torch.empty(n, fan_in, fan_out))
+        self.bias = nn.Parameter(torch.zeros(n, fan_out))
+        with torch.no_grad():
+            for k in self.kernel:
+                w = torch.empty(fan_out, fan_in)
+                nn.init.orthogonal_(w, gain=gain, generator=generator)
+                k.copy_(w.T)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        eq = "...i,nio->...no" if self.shared_input else "...ni,nio->...no"
+        return torch.einsum(eq, x, self.kernel) + self.bias
+
+
+class StackedMLP(nn.Module):
+    """:class:`MLP` with one set of weights an agent."""
+
+    def __init__(self, n: int, in_dim: int, features: Sequence[int],
+                 generator: Optional[torch.Generator] = None, shared_input: bool = False):
+        super().__init__()
+        dims = [in_dim, *features]
+        self.layers = nn.ModuleList(
+            StackedDense(n, a, b, math.sqrt(2.0), generator, shared_input and k == 0)
+            for k, (a, b) in enumerate(zip(dims[:-1], dims[1:]))
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for lin in self.layers:
+            x = torch.relu(lin(x))
+        return x
+
+
+class StackedActor(nn.Module):
+    """Per-agent actors (``share_policy=False``): ``obs [..., N, do]`` →
+    ``(mean, log_std)`` [..., N, da], or logits when ``discrete``."""
+
+    def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: Sequence[int] = (64, 64),
+                 discrete: bool = False, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.discrete = discrete
+        self.mlp = StackedMLP(n, obs_dim, hidden, generator)
+        self.head = StackedDense(n, hidden[-1], act_dim, 0.01, generator)
+        if not discrete:
+            self.log_std = nn.Parameter(torch.zeros(n, act_dim))
+
+    def forward(self, obs: torch.Tensor):
+        out = self.head(self.mlp(obs))
+        if self.discrete:
+            return out
+        return out, soft_bound(self.log_std, -5.0, 2.0).expand_as(out)
+
+
+class StackedValueCritic(nn.Module):
+    """Per-agent critics of the shared observation: ``share_obs [..., N·do]``
+    → ``value [..., N]``."""
+
+    def __init__(self, n: int, in_dim: int, hidden: Sequence[int] = (64, 64),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mlp = StackedMLP(n, in_dim, hidden, generator, shared_input=True)
+        self.head = StackedDense(n, hidden[-1], 1, 1.0, generator)
+
+    def forward(self, share_obs: torch.Tensor) -> torch.Tensor:
+        return self.head(self.mlp(share_obs)).squeeze(-1)
+
+
+class GRUCell(nn.Module):
+    """flax's ``GRUCell`` in ``torch.nn.GRUCell``'s layout: ``weight_ih``
+    [3H, in] and ``weight_hh`` [3H, H] with the gate rows in (r, z, n)
+    order, ``bias_ih`` [3H].  flax has no hidden-side bias on r and z, so
+    of ``torch.nn.GRUCell``'s ``bias_hh`` only the n third is a parameter
+    (``bias_hn``); the r and z thirds are zero and stay zero:
+
+        r = σ(x W_ir + b_ir + h W_hr),  z = σ(x W_iz + b_iz + h W_hz)
+        n = tanh(x W_in + b_in + r · (h W_hn + b_hn)),  h' = (1 − z) n + z h
+
+    Init as flax's: the input kernels lecun-normal (truncated), the hidden
+    kernels orthogonal, the biases zero."""
+
+    def __init__(self, in_dim: int, hidden: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        H = hidden
+        self.weight_ih = nn.Parameter(torch.empty(3 * H, in_dim))
+        self.weight_hh = nn.Parameter(torch.empty(3 * H, H))
+        self.bias_ih = nn.Parameter(torch.zeros(3 * H))
+        self.bias_hn = nn.Parameter(torch.zeros(H))
+        std = 1.0 / math.sqrt(in_dim) / 0.87962566103423978  # flax's truncated lecun_normal
+        with torch.no_grad():
+            nn.init.trunc_normal_(self.weight_ih, std=std, a=-2 * std, b=2 * std, generator=generator)
+            for g in range(3):
+                w = torch.empty(H, H)
+                nn.init.orthogonal_(w, generator=generator)
+                self.weight_hh[g * H:(g + 1) * H] = w.T
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        gi = torch.nn.functional.linear(x, self.weight_ih, self.bias_ih)
+        gh = torch.nn.functional.linear(h, self.weight_hh)
+        ir, iz, in_ = gi.chunk(3, -1)
+        hr, hz, hn = gh.chunk(3, -1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(in_ + r * (hn + self.bias_hn))
+        return (1.0 - z) * n + z * h
+
+
+class GRUPolicy(nn.Module):
+    """Recurrent actor: ``Dense → relu`` embedding, the carry zeroed where
+    ``reset`` is set (before the cell), the GRU cell, then a Gaussian head
+    (``(mean, log_std)``, log-std soft-bounded to (−5, 2)) or, when
+    ``discrete``, logits."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden: int = 64, discrete: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden, self.discrete = hidden, discrete
+        self.embed = _linear(obs_dim, hidden, math.sqrt(2.0), generator)
+        self.gru = GRUCell(hidden, hidden, generator)
+        self.out = _linear(hidden, act_dim, 0.01, generator)
+        if not discrete:
+            self.log_std = nn.Parameter(torch.zeros(act_dim))
+
+    def forward(self, carry: torch.Tensor, obs: torch.Tensor, reset: torch.Tensor):
+        """One step: carry [..., H], obs [..., do], reset [...] bool.
+        Returns ``(new carry, dist)``."""
+        x = torch.relu(self.embed(obs))
+        carry = self.gru(torch.where(reset[..., None], 0.0, carry), x)
+        out = self.out(carry)
+        if self.discrete:
+            return carry, out
+        return carry, (out, soft_bound(self.log_std, -5.0, 2.0).expand_as(out))
+
+
+class GRUCritic(nn.Module):
+    """Recurrent centralized value: ``share_obs → Dense+relu → GRU → V``."""
+
+    def __init__(self, in_dim: int, hidden: int = 64, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.hidden = hidden
+        self.embed = _linear(in_dim, hidden, math.sqrt(2.0), generator)
+        self.gru = GRUCell(hidden, hidden, generator)
+        self.out = _linear(hidden, 1, 1.0, generator)
+
+    def forward(self, carry: torch.Tensor, share_obs: torch.Tensor, reset: torch.Tensor):
+        x = torch.relu(self.embed(share_obs))
+        carry = self.gru(torch.where(reset[..., None], 0.0, carry), x)
+        return carry, self.out(carry).squeeze(-1)
+
+
+def onehot_from_logits(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy one-hot over the last axis."""
+    return torch.nn.functional.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
+
+
+def categorical_logp(logits: torch.Tensor, action_onehot: torch.Tensor) -> torch.Tensor:
+    """log π(a|s) of a one-hot action over the last axis."""
+    return (torch.log_softmax(logits, -1) * action_onehot).sum(-1)
+
+
+def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
+    logp = torch.log_softmax(logits, -1)
+    return -(torch.exp(logp) * logp).sum(-1)
+
+
+def categorical_sample(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+    """A one-hot sample over the last axis (Gumbel-max, as
+    ``jax.random.categorical`` draws)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    gumbel = -torch.log(-torch.log(u))
+    return onehot_from_logits(logits + gumbel)
 
 
 def gaussian_logp(mean: torch.Tensor, log_std: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
@@ -102,80 +299,146 @@ def gaussian_sample(generator: torch.Generator, mean: torch.Tensor, log_std: tor
 
 # -- weight carry-over with the flax param trees -----------------------------
 
-def _mlp_from_flax(mlp: MLP, tree: Dict) -> None:
-    for k, lin in enumerate(mlp.layers):
-        d = tree[f"Dense_{k}"]
-        lin.weight.copy_(torch.as_tensor(np.array(d["kernel"]).T))
-        lin.bias.copy_(torch.as_tensor(np.array(d["bias"])))
+# the flax module of each top-level submodule name
+_FLAX_MODULE = {"mlp": "MLP_0", "head": "Dense_0", "embed": "Dense_0", "out": "Dense_1",
+                "gru": "GRUCell_0"}
+# flax's GRUCell gates in torch's row order (r, z, n), input side and hidden side
+_GATES = {"weight_ih": ("ir", "iz", "in"), "bias_ih": ("ir", "iz", "in"), "weight_hh": ("hr", "hz", "hn")}
 
 
-def flax_path(name: str) -> Tuple[str, ...]:
-    """The flax param path of a parameter of :class:`GaussianActor` /
-    :class:`ValueCritic`: ``mlp.layers.1.weight`` → ``(MLP_0, Dense_1,
-    kernel)``, ``head.bias`` → ``(Dense_0, bias)``, ``log_std``."""
+def _flax_leaves(name: str, a: np.ndarray):
+    """The (flax path, leaf) pairs of the parameter ``name`` holding ``a``:
+    ``mlp.layers.1.weight`` → ``(MLP_0, Dense_1, kernel)`` transposed,
+    ``head.bias`` → ``(Dense_0, bias)``, a stacked ``kernel`` as it is,
+    ``log_std``; a GRU weight splits into its three gates."""
     parts = name.split(".")
-    leaf = {"weight": "kernel", "bias": "bias"}
-    if parts[0] == "mlp":
-        return ("MLP_0", f"Dense_{parts[2]}", leaf[parts[3]])
-    if parts[0] == "head":
-        return ("Dense_0", leaf[parts[1]])
-    return (name,)
+    top = _FLAX_MODULE.get(parts[0])
+    if top is None:
+        return [((name,), a)]
+    if parts[0] == "gru":
+        leaf = parts[1]
+        if leaf == "bias_hn":
+            return [((top, "hn", "bias"), a)]
+        H = a.shape[0] // 3
+        kind = "bias" if leaf == "bias_ih" else "kernel"
+        return [((top, g, kind), a[k * H:(k + 1) * H].T if kind == "kernel" else a[k * H:(k + 1) * H])
+                for k, g in enumerate(_GATES[leaf])]
+    mod = (top, f"Dense_{parts[2]}") if parts[0] == "mlp" else (top,)
+    leaf = parts[-1]
+    if leaf == "weight":  # nn.Linear [out, in] → flax [in, out]
+        return [(mod + ("kernel",), a.T)]
+    return [(mod + (leaf,), a)]
+
+
+def _from_flax_leaf(name: str, p: Dict) -> np.ndarray:
+    """Inverse of :func:`_flax_leaves`: parameter ``name`` in the port's
+    layout, read from the flax ``params`` dict ``p``."""
+    get = lambda path: np.array(functools.reduce(lambda t, k: t[k], path, p))
+    parts = name.split(".")
+    top = _FLAX_MODULE.get(parts[0])
+    if top is None:
+        return get((name,))
+    if parts[0] == "gru":
+        leaf = parts[1]
+        if leaf == "bias_hn":
+            return get((top, "hn", "bias"))
+        kind = "bias" if leaf == "bias_ih" else "kernel"
+        xs = [get((top, g, kind)) for g in _GATES[leaf]]
+        return np.concatenate([x.T if kind == "kernel" else x for x in xs], 0)
+    mod = (top, f"Dense_{parts[2]}") if parts[0] == "mlp" else (top,)
+    leaf = parts[-1]
+    if leaf == "weight":
+        return get(mod + ("kernel",)).T
+    return get(mod + (leaf,))
 
 
 def to_flax_tree(named: Dict[str, torch.Tensor]) -> Dict:
     """Tensors keyed by parameter name (the parameters themselves, or their
-    gradients) → the flax param tree, numpy leaves, Dense kernels
-    transposed to ``[in, out]``."""
+    gradients) → the flax param tree with numpy leaves."""
     tree: Dict = {}
     for name, t in named.items():
-        path = flax_path(name)
-        a = t.detach().cpu().numpy()
-        node = tree
-        for p in path[:-1]:
-            node = node.setdefault(p, {})
-        node[path[-1]] = (a.T if path[-1] == "kernel" else a).copy()
+        for path, a in _flax_leaves(name, t.detach().cpu().numpy()):
+            node = tree
+            for k in path[:-1]:
+                node = node.setdefault(k, {})
+            node[path[-1]] = a.copy()
     return {"params": tree}
 
 
-def _dense_shapes(tree: Dict):
-    p = tree["params"]
+def to_flax(module: nn.Module) -> Dict:
+    """The flax param tree of any network of this module (numpy leaves)."""
+    return to_flax_tree(dict(module.named_parameters()))
+
+
+
+def _load_flax(module: nn.Module, tree: Dict, dtype: torch.dtype, device) -> nn.Module:
+    module = module.to(dtype)
+    with torch.no_grad():
+        for name, param in module.named_parameters():
+            param.copy_(torch.as_tensor(_from_flax_leaf(name, tree["params"])))
+    return module.to(device)
+
+
+def _kernel(p: Dict, *path) -> np.ndarray:
+    return np.asarray(functools.reduce(lambda t, k: t[k], path + ("kernel",), p))
+
+
+def _mlp_dims(p: Dict) -> Tuple[int, Tuple[int, ...], int]:
+    """(input width, hidden widths, head width) of an MLP_0 + Dense_0 tree
+    (the last two axes of each kernel, so stacked trees too)."""
     mlp = p["MLP_0"]
-    kernels = [np.asarray(mlp[f"Dense_{k}"]["kernel"]) for k in range(len(mlp))]
-    return kernels[0].shape[0], tuple(k.shape[1] for k in kernels), np.asarray(p["Dense_0"]["kernel"]).shape[1]
+    kernels = [_kernel(mlp, f"Dense_{k}") for k in range(len(mlp))]
+    return kernels[0].shape[-2], tuple(k.shape[-1] for k in kernels), _kernel(p, "Dense_0").shape[-1]
 
 
 def actor_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> GaussianActor:
-    """A :class:`GaussianActor` holding the weights of a flax
-    ``GaussianActor`` param tree (nested dicts of arrays)."""
-    in_dim, hidden, act_dim = _dense_shapes(tree)
-    actor = GaussianActor(in_dim, act_dim, hidden).to(dtype)
-    p = tree["params"]
-    with torch.no_grad():
-        _mlp_from_flax(actor.mlp, p["MLP_0"])
-        actor.head.weight.copy_(torch.as_tensor(np.array(p["Dense_0"]["kernel"]).T))
-        actor.head.bias.copy_(torch.as_tensor(np.array(p["Dense_0"]["bias"])))
-        actor.log_std.copy_(torch.as_tensor(np.array(p["log_std"])))
-    return actor.to(device)
+    """A :class:`GaussianActor` holding a flax ``GaussianActor`` tree."""
+    in_dim, hidden, act_dim = _mlp_dims(tree["params"])
+    return _load_flax(GaussianActor(in_dim, act_dim, hidden), tree, dtype, device)
+
+
+def logits_actor_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> LogitsActor:
+    """A :class:`LogitsActor` holding a flax ``LogitsActor`` tree."""
+    in_dim, hidden, n_actions = _mlp_dims(tree["params"])
+    return _load_flax(LogitsActor(in_dim, n_actions, hidden), tree, dtype, device)
 
 
 def critic_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> ValueCritic:
-    """A :class:`ValueCritic` holding the weights of a flax ``ValueCritic``
-    param tree."""
-    in_dim, hidden, _ = _dense_shapes(tree)
-    critic = ValueCritic(in_dim, hidden).to(dtype)
+    """A :class:`ValueCritic` holding a flax ``ValueCritic`` tree."""
+    in_dim, hidden, _ = _mlp_dims(tree["params"])
+    return _load_flax(ValueCritic(in_dim, hidden), tree, dtype, device)
+
+
+def stacked_actor_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> StackedActor:
+    """A :class:`StackedActor` holding the per-agent actors of the JAX
+    package's ``share_policy=False`` (a vmapped init: every leaf has a
+    leading agent axis); the head is Gaussian where the tree has a
+    ``log_std``, else logits."""
     p = tree["params"]
-    with torch.no_grad():
-        _mlp_from_flax(critic.mlp, p["MLP_0"])
-        critic.head.weight.copy_(torch.as_tensor(np.array(p["Dense_0"]["kernel"]).T))
-        critic.head.bias.copy_(torch.as_tensor(np.array(p["Dense_0"]["bias"])))
-    return critic.to(device)
+    in_dim, hidden, act_dim = _mlp_dims(p)
+    n = _kernel(p, "Dense_0").shape[0]
+    return _load_flax(StackedActor(n, in_dim, act_dim, hidden, discrete="log_std" not in p),
+                      tree, dtype, device)
 
 
-def actor_to_flax(actor: GaussianActor) -> Dict:
-    """The flax param tree of ``actor`` (numpy leaves)."""
-    return to_flax_tree(dict(actor.named_parameters()))
+def stacked_critic_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> StackedValueCritic:
+    """A :class:`StackedValueCritic` holding the per-agent critics."""
+    p = tree["params"]
+    in_dim, hidden, _ = _mlp_dims(p)
+    return _load_flax(StackedValueCritic(_kernel(p, "Dense_0").shape[0], in_dim, hidden),
+                      tree, dtype, device)
 
 
-def critic_to_flax(critic: ValueCritic) -> Dict:
-    """The flax param tree of ``critic`` (numpy leaves)."""
-    return to_flax_tree(dict(critic.named_parameters()))
+def gru_policy_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> GRUPolicy:
+    """A :class:`GRUPolicy` holding a flax ``GRUPolicy`` tree (the logits
+    head where the tree has no ``log_std``)."""
+    p = tree["params"]
+    obs_dim, hidden = _kernel(p, "Dense_0").shape
+    act_dim = _kernel(p, "Dense_1").shape[1]
+    return _load_flax(GRUPolicy(obs_dim, act_dim, hidden, discrete="log_std" not in p), tree, dtype, device)
+
+
+def gru_critic_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> GRUCritic:
+    """A :class:`GRUCritic` holding a flax ``GRUCritic`` tree."""
+    in_dim, hidden = _kernel(tree["params"], "Dense_0").shape
+    return _load_flax(GRUCritic(in_dim, hidden), tree, dtype, device)

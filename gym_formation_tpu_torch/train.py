@@ -1,13 +1,16 @@
-"""Training entry point of the port (MAPPO on the formation envs).
+"""Training entry point of the port (the on-policy learners on the formation envs).
 
     python -m gym_formation_tpu_torch.train --algo mappo --scenario formation_hd_env \\
         --num-agents 3 --num-envs 4096 --iters 500
+    python -m gym_formation_tpu_torch.train --algo rmappo --num-envs 128 --episode-length 25
+    python -m gym_formation_tpu_torch.train --discrete-action --set share_policy=False
     python -m gym_formation_tpu_torch.train --device cpu --num-envs 8 --iters 2
     python -m gym_formation_tpu_torch.train --restore --run-dir runs/my_run
 
-The arguments are the JAX package's ``train.py`` ones for MAPPO, plus
-``--device`` (default ``cuda``; without a CUDA device the run stops unless
-``--device cpu`` is given).  Every ``--log-every`` iterations one row of
+The arguments are the JAX package's ``train.py`` ones for ``mappo`` and
+``rmappo`` (the other algorithms are not yet ported), plus ``--device``
+(default ``cuda``; without a CUDA device the run stops unless ``--device
+cpu`` is given).  Every ``--log-every`` iterations one row of
 metrics goes to ``<run-dir>/metrics.jsonl``; every ``--save-every``
 iterations the whole training tuple goes to ``<run-dir>/ckpt/``.
 """
@@ -21,19 +24,16 @@ import time
 import torch
 
 import gym_formation_tpu_torch as gt
-from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
-from gym_formation_tpu_torch.utils import (
-    MetricsLogger,
-    latest_step,
-    load_config,
-    restore_checkpoint,
-    save_checkpoint,
-)
+from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, ONPOLICY, make_algo
+from gym_formation_tpu_torch.utils import MetricsLogger, latest_step, restore_checkpoint, save_checkpoint
+
+# the algorithms that take --discrete-action (the JAX package's list)
+DISCRETE_OK = ("maddpg", "ddpg", "matd3", "masac", "mappo", "rmappo") + DISCRETE_ONLY
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--algo", default="mappo")
+    p.add_argument("--algo", choices=ALGO_NAMES, default="mappo")
     p.add_argument("--scenario", default="formation_hd_env")
     p.add_argument("--num-agents", type=int, default=3)
     p.add_argument("--num-envs", type=int, default=128)
@@ -42,8 +42,10 @@ def parse_args(argv=None):
     p.add_argument("--episode-length", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--set", action="append", metavar="KEY=VALUE", default=[],
-                   help="override a MAPPOConfig field, repeatable (e.g. --set ppo_epochs=5)")
+                   help="override a field of the algorithm's config, repeatable (e.g. --set ppo_epochs=5)")
     p.add_argument("--config", default=None, help="YAML file of config overrides; --set wins")
+    p.add_argument("--discrete-action", action="store_true",
+                   help="5-way discrete action env: mappo and rmappo take a categorical head")
     p.add_argument("--benchmark", action="store_true",
                    help="build the env with benchmark=True and log the bench_* means")
     p.add_argument("--run-dir", default=None)
@@ -57,8 +59,11 @@ def parse_args(argv=None):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.algo != "mappo":
-        raise SystemExit(f"--algo {args.algo} is not yet ported: this port trains mappo only")
+    if args.discrete_action and args.algo not in DISCRETE_OK:
+        raise SystemExit("--discrete-action is supported by maddpg/ddpg/matd3/masac (the gumbel-softmax "
+                         "paths) and mappo/rmappo (categorical heads); qmix/vdn variants are discrete by default")
+    if args.algo not in ONPOLICY:
+        raise SystemExit(f"--algo {args.algo} is not yet ported: this port trains {' and '.join(ONPOLICY)}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: train on the CPU with --device cpu")
@@ -66,40 +71,39 @@ def main(argv=None) -> None:
     kw = {}
     if args.episode_length is not None:
         kw["episode_length" if args.scenario == "formation_hd_env" else "world_length"] = args.episode_length
-    env = gt.make_env(args.scenario, num_agents=args.num_agents, benchmark=args.benchmark, **kw)
-    sets = ([f"lr={args.lr}"] if args.lr is not None else []) + list(args.set)
-    cfg = load_config(MAPPOConfig, args.config, sets)
-    algo = MAPPO(env, cfg, num_envs=args.num_envs, device=device)
+    env = gt.make_env(args.scenario, num_agents=args.num_agents, benchmark=args.benchmark,
+                      discrete_action=args.discrete_action or args.algo in DISCRETE_ONLY, **kw)
+    algo = make_algo(args.algo, env, args.num_envs, args.set, args.config, args.lr, device)
+    cfg = algo.cfg
 
     run_dir = args.run_dir or os.path.join(
         "runs", f"{args.algo}_{args.scenario}_N{args.num_agents}_{int(time.time())}")
     ckpt_dir = os.path.join(run_dir, "ckpt")
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed)
-    ts, env_state, obs = algo.init(generator)
+    state = algo.init(generator)  # (ts, env_state, obs[, carry])
     start = 0
     if args.restore:
         step = latest_step(ckpt_dir)
         if step is None:
             raise SystemExit(f"--restore: no checkpoint under {ckpt_dir} (pass the run's --run-dir)")
-        ts, env_state, obs = algo.restore_tree(restore_checkpoint(ckpt_dir, step), generator)
+        state = algo.restore_tree(restore_checkpoint(ckpt_dir, step), generator)
         start = step
         print(f"restored checkpoint at iteration {step} from {ckpt_dir}")
 
-    print(f"mappo on {args.scenario} N={args.num_agents} B={args.num_envs} device={device}: "
-          f"fused_collect={algo.fused_collect} structured_obs={algo.structured_obs} "
-          f"fused_update={cfg.fused_update}")
+    print(f"{args.algo} on {args.scenario} N={args.num_agents} B={args.num_envs} device={device} "
+          f"discrete={algo.discrete} share_policy={cfg.share_policy}: fused_collect={algo.fused_collect} "
+          f"structured_obs={algo.structured_obs} fused_update={cfg.fused_update}")
     steps_per_iter = cfg.rollout_len * args.num_envs
     logger = MetricsLogger(run_dir)
     for i in range(start, start + args.iters):
-        ts, env_state, obs, m = algo.train_step(ts, env_state, obs, generator)
+        *state, m = algo.train_step(*state, generator)
         if (i - start) % args.log_every == 0:
             m = {k: float(v) for k, v in m.items()}
             logger.log((i + 1) * steps_per_iter, m)
             print(f"iter {i}: {m}")
         if args.save_every and (i + 1 - start) % args.save_every == 0:
-            save_checkpoint(ckpt_dir, i + 1, algo.checkpoint_tree(ts, env_state, obs, generator),
-                            max_to_keep=2)
+            save_checkpoint(ckpt_dir, i + 1, algo.checkpoint_tree(*state, generator), max_to_keep=2)
     logger.close()
     print(f"done -> {run_dir}")
 

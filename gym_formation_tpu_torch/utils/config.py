@@ -35,9 +35,11 @@ def _parse_scalar(s: str) -> Any:
     return s
 
 
-def load_config(cls: Type[T], yaml_path: Optional[str] = None, overrides: Sequence[str] = ()) -> T:
-    """Defaults ← YAML file ← ``key=value`` override strings."""
-    d: Dict[str, Any] = {}
+def load_config(cls: Type[T], yaml_path: Optional[str] = None, overrides: Sequence[str] = (),
+                base: Optional[Mapping[str, Any]] = None) -> T:
+    """Defaults ← ``base`` (e.g. a checkpoint's config) ← YAML file ←
+    ``key=value`` override strings."""
+    d: Dict[str, Any] = dict(base or {})
     if yaml_path:
         import yaml
 

@@ -1085,3 +1085,53 @@ def test_hd_obs_step_on_card_matches_cpu(dev):
     torch.testing.assert_close(cp, pp, atol=2e-4, rtol=1e-4)
     torch.testing.assert_close(cv, pv, atol=2e-3, rtol=1e-4)
     torch.testing.assert_close(cr, pr, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B", [128, 512])
+def test_k1_k2_at_the_n3_paths_shape(dev, B):
+    """The shape every env step of the N=3 on-policy paths gives K1 and K2:
+    the hd env's 3 colliding agents (one tile of 32 with 29 empty lanes in
+    K1's sweep; K2's R = 2 super-tile of 32 with 29 pads), pairs in exact
+    contact, on K2's threshold and at zero distance."""
+    from gym_formation_tpu_torch.core.physics import _collide_subset
+
+    _, _, _, cfg = _collide_subset(gt.make_env("formation_hd_env", num_agents=3).cfg)
+    rng = np.random.RandomState(B)
+    pos = rng.uniform(-0.5, 0.5, (B, 3, 2))
+    pos[0::3, 1] = pos[0::3, 0] + [0.06, 0.0]
+    pos[1::3, 1] = pos[1::3, 0] + [0.0, 0.03]
+    pos[2::3, 2] = pos[2::3, 1]
+    pos = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    got = k1.collision_forces_sym(pos, cfg)
+    torch.testing.assert_close(got, k1.collision_forces_sym_plain(pos, **k1._params(cfg)), atol=1e-3, rtol=1e-3)
+    assert torch.equal(got, k1.collision_forces_sym(pos, cfg))
+    ish = torch.as_tensor(rng.uniform(-1, 1, (B, 3, 2)), dtype=torch.float32, device=dev)
+    h, nc = k2.hd_reward_stats_sym(pos, ish, thresh=0.03)
+    h_p, nc_p = k2.hd_reward_stats_sym_plain(pos, ish, thresh=0.03)
+    torch.testing.assert_close(h, h_p, atol=1e-5, rtol=0)
+    assert torch.equal(nc, nc_p) and int(nc.sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["rmappo", "discrete", "separated"])
+def test_onpolicy_path_launches_k1_k2_each_env_step(dev, kind):
+    """One iteration of each N=3 on-policy path on the card: K1 and K2
+    once an env step, K5 and K9 never, finite metrics."""
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig, RMAPPO, RMAPPOConfig
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    if kind == "rmappo":
+        algo = RMAPPO(gt.make_env("formation_hd_env", num_agents=3, episode_length=5),
+                      RMAPPOConfig(rollout_len=10, ppo_epochs=2), num_envs=16, device=dev)
+    else:
+        algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3, discrete_action=kind == "discrete"),
+                     MAPPOConfig(rollout_len=10, ppo_epochs=2, share_policy=kind != "separated"),
+                     num_envs=16, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = algo.init(g)
+    for m in (k1, k2, k5, k9):
+        m.launches = 0
+    *state, metrics = algo.train_step(*state, g)
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert (k1.launches, k2.launches, k5.launches, k9.launches) == (10, 10, 0, 0)

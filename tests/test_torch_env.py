@@ -249,8 +249,8 @@ def test_registry_and_spaces():
     assert five <= set(ft.SCENARIOS) and five <= set(gt.SCENARIOS)
     with pytest.raises(ValueError, match="Unknown"):
         gt.make_env("no_such_env")
-    with pytest.raises(NotImplementedError):
-        gt.make_env("formation_hd_env", discrete_action=True)
+    discrete = gt.make_env("formation_hd_env", discrete_action=True)
+    assert discrete.act_dim == 5 and repr(discrete.action_space[0]) == "Discrete(5)"
 
 
 def test_state_carry_over_roundtrip():

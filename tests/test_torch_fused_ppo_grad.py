@@ -16,7 +16,7 @@ from gym_formation_tpu.ops.pallas import fused_ppo_grad as jk9
 
 import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
-from gym_formation_tpu_torch.models.networks import actor_to_flax, critic_to_flax
+from gym_formation_tpu_torch.models.networks import to_flax
 from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
 
 # tests/test_fused_ppo_grad.py's tolerance a gradient leaf
@@ -103,8 +103,8 @@ def test_fused_update_matches_autograd_update():
     batch = {k: torch.as_tensor(v) for k, v in data.items()}
     ts_f, m_f = fused._update_fused(fused.state_from_flax(params), batch)
     ts_p, m_p = plain._update(plain.state_from_flax(params), batch)
-    for a, b in ((actor_to_flax(ts_f.actor), actor_to_flax(ts_p.actor)),
-                 (critic_to_flax(ts_f.critic), critic_to_flax(ts_p.critic))):
+    for a, b in ((to_flax(ts_f.actor), to_flax(ts_p.actor)),
+                 (to_flax(ts_f.critic), to_flax(ts_p.critic))):
         for (path, x), (_, y) in zip(jax.tree_util.tree_flatten_with_path(a)[0],
                                      jax.tree_util.tree_flatten_with_path(b)[0]):
             np.testing.assert_allclose(x, y, rtol=5e-3, atol=5e-5, err_msg=jax.tree_util.keystr(path))

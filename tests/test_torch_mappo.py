@@ -33,7 +33,7 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch import train as ttrain
 from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
 from gym_formation_tpu_torch.algos.mappo import ValueNorm
-from gym_formation_tpu_torch.models.networks import actor_to_flax, critic_to_flax, to_flax_tree
+from gym_formation_tpu_torch.models.networks import to_flax, to_flax_tree
 from gym_formation_tpu_torch.utils import restore_checkpoint, save_checkpoint
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,7 +68,7 @@ def _assert_trees(got, want, rtol, atol):
 
 
 def _params_tree(ts):
-    tree = {"actor": actor_to_flax(ts.actor), "critic": critic_to_flax(ts.critic)}
+    tree = {"actor": to_flax(ts.actor), "critic": to_flax(ts.critic)}
     if ts.log_alpha is not None:
         tree["log_alpha"] = ts.log_alpha.detach().numpy()
     return tree
@@ -300,8 +300,8 @@ def test_auto_gates(monkeypatch):
         MAPPO(big, MAPPOConfig(fused_update=True, structured_obs=True), num_envs=4, device="cpu")
     with pytest.raises(AssertionError):
         MAPPO(hd3, MAPPOConfig(fused_update=True, auto_entropy=True), num_envs=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MAPPO(hd3, MAPPOConfig(share_policy=False), num_envs=4, device="cpu")
+    separated = MAPPO(hd3, MAPPOConfig(share_policy=False), num_envs=4, device="cuda")
+    assert not separated.fused_collect and not separated.structured_obs
 
 
 def test_checkpoint_restore_continues_exactly(tmp_path):

@@ -1,0 +1,182 @@
+"""The port's registry and entry points: ``eval_policy`` against the JAX
+package's on the same parameters in float64 (mappo with both heads, greedy
+and stochastic; rmappo with its carry over 4 steps across a reset),
+``make_algo``, the names not yet ported, and the ``train`` and ``eval``
+entry points on the CPU in a subprocess."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gym_formation_tpu as ft
+from gym_formation_tpu.algos import registry as jreg
+
+import gym_formation_tpu_torch as gt
+from gym_formation_tpu_torch import eval as teval
+from gym_formation_tpu_torch import train as ttrain
+from gym_formation_tpu_torch.algos import (
+    ALGO_NAMES, MAPPO, ONPOLICY, RMAPPO, MAPPOConfig, RMAPPOConfig, eval_policy, make_algo,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+F64 = torch.float64
+TOL = dict(rtol=1e-10, atol=1e-10)
+NOT_PORTED = tuple(n for n in ALGO_NAMES if n not in ONPOLICY)
+
+
+def _pair(name, discrete, B):
+    """The JAX learner (its params in float64, the actor's head gains up so
+    that the clip and the argmax see spread) and the port's in float64
+    holding the same parameters."""
+    jenv = ft.make_env("formation_hd_env", num_agents=3, episode_length=8, discrete_action=discrete)
+    sets = ["rollout_len=4", "ppo_epochs=1"] + (["data_chunk_length=2", "gru_hidden=16"] if name == "rmappo" else [])
+    jalgo = jreg.make_algo(name, jenv, num_envs=B, sets=sets)
+    params = jax.tree.map(lambda x: np.asarray(x, np.float64), jalgo.init(jax.random.PRNGKey(0))[0].params)
+    head = "Dense_1" if name == "rmappo" else "Dense_0"
+    params["actor"]["params"][head]["kernel"] = params["actor"]["params"][head]["kernel"] * 200.0
+    tenv = gt.make_env("formation_hd_env", num_agents=3, episode_length=8, discrete_action=discrete)
+    cls, cfg = (RMAPPO, RMAPPOConfig) if name == "rmappo" else (MAPPO, MAPPOConfig)
+    talgo = cls(tenv, cfg(rollout_len=4, ppo_epochs=1, **({"data_chunk_length": 2, "gru_hidden": 16}
+                                                          if name == "rmappo" else {})),
+                num_envs=B, device="cpu", dtype=F64)
+    return jalgo, params, talgo, talgo.state_from_flax(params)
+
+
+def _obs(B, seed):
+    return np.random.RandomState(seed).uniform(-1.5, 1.5, (B, 3, 18))
+
+
+@pytest.mark.parametrize("clip", [True, False])
+@pytest.mark.parametrize("discrete", [False, True])
+def test_eval_policy_mappo_greedy_matches_jax(discrete, clip):
+    B = 5
+    jalgo, params, talgo, ts = _pair("mappo", discrete, B)
+    jpol, jcarry = jreg.eval_policy("mappo", jalgo, {"params": params}, B, clip_continuous=clip)
+    tpol, tcarry = eval_policy("mappo", talgo, ts, B, clip_continuous=clip)
+    assert jcarry is None and tcarry is None
+    obs = _obs(B, 1)
+    a_j, _ = jpol(jnp.asarray(obs), None)
+    a_t, _ = tpol(torch.as_tensor(obs), None)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), **TOL)
+    if not discrete:
+        assert (np.abs(a_t.numpy()) > 1.0).any() != clip  # the clip acts, and only when asked
+
+
+@pytest.mark.parametrize("discrete", [False, True])
+def test_eval_policy_mappo_stochastic(discrete):
+    """Samples of JAX's distribution on the same parameters, drawn from a
+    generator seeded by ``seed`` (the carry, threaded from step to step):
+    the same seed gives the same draws, the next step new ones."""
+    B, seed = 6, 11
+    jalgo, params, talgo, ts = _pair("mappo", discrete, B)
+    tpol, g = eval_policy("mappo", talgo, ts, B, stochastic=True, seed=seed)
+    obs = _obs(B, 2)
+    dist = jalgo._apply_actor(params["actor"], jnp.asarray(obs))
+    ref = torch.Generator()
+    ref.manual_seed(seed)
+    for _ in range(2):
+        a_t, g = tpol(torch.as_tensor(obs), g)
+        if discrete:
+            u = torch.rand((B, 3, 5), generator=ref, dtype=F64)
+            want = np.eye(5)[np.argmax(np.asarray(dist) - np.log(-np.log(u.numpy())), -1)]
+            assert set(a_t.unique().tolist()) == {0.0, 1.0}
+        else:
+            noise = torch.randn((B, 3, 2), generator=ref, dtype=F64).numpy()
+            want = np.clip(np.asarray(dist[0]) + np.exp(np.asarray(dist[1])) * noise, -1.0, 1.0)
+        np.testing.assert_allclose(a_t.numpy(), want, **TOL)
+    again, _ = eval_policy("mappo", talgo, ts, B, stochastic=True, seed=seed)[0](
+        torch.as_tensor(obs), eval_policy("mappo", talgo, ts, B, stochastic=True, seed=seed)[1])
+    first, _ = tpol(torch.as_tensor(obs), g)
+    assert not torch.equal(again, first)  # a new draw on the third step
+
+
+@pytest.mark.parametrize("discrete", [False, True])
+def test_eval_policy_rmappo_carry_matches_jax(discrete):
+    """The carry threaded over 4 steps: hidden states zeroed at the start,
+    and again for the envs whose reset flags are set before step 2 (an
+    episode start), against JAX's eval policy (1e-10)."""
+    B = 4
+    jalgo, params, talgo, ts = _pair("rmappo", discrete, B)
+    jpol, (hj, rj) = jreg.eval_policy("rmappo", jalgo, {"params": params}, B)
+    tpol, (ht, rt) = eval_policy("rmappo", talgo, ts, B)
+    assert ht.shape == (B, 3, 16) and bool(rt.all())
+    hj, ht = hj + 0.3, ht + 0.3  # a stale carry that the first step's resets must clear
+    for step in range(4):
+        if step == 2:
+            rj, rt = jnp.asarray([True, False, True, False]), torch.tensor([True, False, True, False])
+        obs = _obs(B, 10 + step)
+        a_j, (hj, rj) = jpol(jnp.asarray(obs), (hj, rj))
+        a_t, (ht, rt) = tpol(torch.as_tensor(obs), (ht, rt))
+        np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), **TOL)
+        np.testing.assert_allclose(ht.numpy(), np.asarray(hj), **TOL)
+        assert not bool(rt.any())
+    with pytest.raises(SystemExit, match="mappo only"):
+        eval_policy("rmappo", talgo, ts, B, stochastic=True)
+
+
+def test_make_algo():
+    env = gt.make_env("formation_hd_env", num_agents=3)
+    a = make_algo("mappo", env, 8, sets=["ppo_epochs=3"], lr=1e-3, device="cpu")
+    assert type(a) is MAPPO and (a.cfg.ppo_epochs, a.cfg.lr, a.num_envs) == (3, 1e-3, 8)
+    r = make_algo("rmappo", env, 4, sets=["data_chunk_length=5", "lr=2e-4"], lr=1e-3, device="cpu")
+    assert type(r) is RMAPPO and (r.cfg.gru_hidden, r.cfg.data_chunk_length, r.cfg.lr) == (64, 5, 2e-4)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        make_algo("ppo", env, 4, device="cpu")
+
+
+@pytest.mark.parametrize("name", NOT_PORTED)
+def test_names_not_yet_ported_raise(name):
+    env = gt.make_env("formation_hd_env", num_agents=3)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        make_algo(name, env, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        eval_policy(name, None, None, 1)
+    with pytest.raises(SystemExit, match="not yet ported"):
+        ttrain.main(["--algo", name, "--device", "cpu"])
+
+
+def test_eval_refusals():
+    for argv, match in ((["--gif", "x.gif"], "renderer is not yet ported"),
+                        (["--per-agent-view"], "renderer is not yet ported"),
+                        (["--discrete-action"], "only applies to trained checkpoints"),
+                        (["--policy", "ckpt", "--discrete-action", "--num-layer", "2"], "can't be BFS-expanded"),
+                        (["--stochastic"], "--stochastic applies"),
+                        (["--policy", "ckpt", "--algo", "rmappo", "--num-layer", "2"], "shared stateless actor"),
+                        (["--policy", "ckpt", "--algo", "qmix"], "not yet ported")):
+        with pytest.raises(SystemExit, match=match):
+            teval.main(argv + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="is supported by"):
+        ttrain.main(["--algo", "rmaddpg", "--discrete-action", "--device", "cpu"])
+
+
+def _run(module, args):
+    cmd = [sys.executable, "-m", f"gym_formation_tpu_torch.{module}", "--device", "cpu", *args]
+    return subprocess.run(cmd, cwd=REPO, check=True, timeout=300, capture_output=True, text=True).stdout
+
+
+@pytest.mark.parametrize("algo,extra,eval_extra", [
+    ("rmappo", ["--set", "data_chunk_length=2"], []),
+    ("mappo", ["--discrete-action"], ["--discrete-action"]),
+    ("mappo", ["--set", "share_policy=False"], []),
+])
+def test_train_and_eval_entry_points_cpu(algo, extra, eval_extra, tmp_path):
+    """Two iterations with a checkpoint each, a restored third, then eval
+    of the checkpoint: finite returns for 2 episodes."""
+    run = tmp_path / "run"
+    base = ["--algo", algo, "--num-envs", "8", "--episode-length", "6", "--log-every", "1", "--save-every", "1",
+            "--run-dir", str(run), "--set", "rollout_len=4", "--set", "ppo_epochs=1", *extra]
+    _run("train", base + ["--iters", "2"])
+    out = _run("train", base + ["--iters", "1", "--restore"])
+    assert "restored checkpoint at iteration 2" in out
+    assert sorted(os.listdir(run / "ckpt")) == ["2.pt", "3.pt"]
+    out = _run("eval", ["--policy", "ckpt", "--algo", algo, "--ckpt", str(run / "ckpt"), "--episodes", "2",
+                        "--episode-length", "6", *eval_extra])
+    returns = [float(line.split("return=")[1].split()[0]) for line in out.splitlines() if "return=" in line]
+    assert len(returns) == 2 and np.isfinite(returns).all()
+    assert "collisions" in out and "mean return over 2 episodes" in out

@@ -20,7 +20,7 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
 from gym_formation_tpu_torch.envs.formation_hd import FormationHDScenario
 from gym_formation_tpu_torch.models import structured_obs as tso
-from gym_formation_tpu_torch.models.networks import GaussianActor, ValueCritic, actor_to_flax, critic_to_flax
+from gym_formation_tpu_torch.models.networks import GaussianActor, ValueCritic, to_flax
 
 F64 = torch.float64
 
@@ -104,8 +104,8 @@ def test_structured_update_matches_jax():
     assert talgo.structured_obs
     ts = talgo.state_from_flax(jax.tree.map(np.asarray, p64))
     ts, m_t = talgo._update(ts, {k: torch.as_tensor(np.array(v)) for k, v in data.items()})
-    for got, want in ((actor_to_flax(ts.actor), ts_j2.params["actor"]),
-                      (critic_to_flax(ts.critic), ts_j2.params["critic"])):
+    for got, want in ((to_flax(ts.actor), ts_j2.params["actor"]),
+                      (to_flax(ts.critic), ts_j2.params["critic"])):
         for (path, x), (_, y) in zip(jax.tree_util.tree_flatten_with_path(got)[0],
                                      jax.tree_util.tree_flatten_with_path(want)[0]):
             np.testing.assert_allclose(x, np.asarray(y), rtol=1e-7, atol=1e-8, err_msg=jax.tree_util.keystr(path))
