@@ -93,11 +93,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 19. The other scenarios: basic_formation_env (N=3, ezpolicy) and the two
    partial scenarios (N=27, the linear policy) at B=4096, K1 once a step.
 20. K1 and K2 against their plain versions at the N=3 paths' shape (the hd
-   colliding subset of 3 agents) at B=128 and 512: random states, pairs in
-   exact contact, at K2's threshold and at zero distance, all agents in
-   contact; K1 atol = rtol = 1e-3, K2 Hausdorff atol 1e-5 and counts equal,
-   two launches bit for bit.  Each kernel's time at n=3 beside its plain
-   version's and its bound.
+   colliding subset of 3 agents) at B=32 (the off-policy zoo), 128 and 512:
+   random states, pairs in exact contact, at K2's threshold and at zero
+   distance, all agents in contact; K1 atol = rtol = 1e-3, K2 Hausdorff
+   atol 1e-5 and counts equal, two launches bit for bit.  Each kernel's
+   time at n=3, B=32 and 512, beside its plain version's and its bound.
 21. RMAPPO N=3 path: RMAPPO(make_env("formation_hd_env", num_agents=3,
    episode_length=25), RMAPPOConfig(), num_envs=128), the reference's tuned
    configuration (GRU 64, chunks of 5, 10 epochs).  One warm-up and 3 timed
@@ -110,6 +110,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 23. Separated MAPPO N=3 path (share_policy=False) at B=512: as phase 21.
 24. eval: python -m gym_formation_tpu_torch.eval --policy ckpt --algo rmappo
    on a checkpoint of phase 21's learner, 2 episodes on the card, finite
+   returns.
+25. MADDPG N=3 path: make_algo("maddpg", make_env("formation_hd_env",
+   num_agents=3), 32 envs) with MADDPGConfig() (the reference's zoo
+   protocol: hidden (64, 64, 64), batch 256, a buffer of 500,000, 32 env
+   steps and 32 updates an iteration).  One warm-up and 3 timed train_step
+   calls, each closed by a host fetch of the metrics: K1 and K2 once an
+   env step (96 launches), K3-K9 never.  Training env-steps/s, the
+   collect / update split (CUDA events), the peak device memory; two
+   _update_once calls on the card against the CPU from the same networks,
+   batches and draws; mean_step_reward over 12 iterations finite and above
+   ZOO_FLOOR (the reference's own learners leave the on-policy band).
+   Beside it, 3 timed iterations each (launches, rate, split, memory) of
+   DDPG (local critics), discrete MADDPG (every stored action a one-hot)
+   and MADDPG with use_per and ou_noise (priorities finite and positive,
+   importance weights in (0, 1]).
+26. MATD3 N=3 path, continuous as phase 25 (on the second update the delay
+   skips, the card's actor stays as it was), and discrete beside it.
+27. MASAC N=3 path, continuous as phase 25 and discrete beside it; α moves
+   from init_alpha.
+28. QMIX N=3 path on the discrete env, QMixConfig() defaults (a buffer of
+   200,000, 8 updates an iteration), as phase 25; VDN beside it.
+29. eval: python -m gym_formation_tpu_torch.eval --policy ckpt of phase 25's
+   MADDPG and phase 28's QMIX learners, 2 episodes each on the card, finite
    returns.
 
 Each path is driven with every launch counter set to 0 just before it and
@@ -1007,6 +1030,13 @@ def phase_other_scenarios(dev, kmods):
 
 # -- the on-policy family at N=3 ------------------------------------------------
 RMAPPO_ENVS, MAPPO_ENVS = 128, 512  # the reference's tuned rmappo run; the discrete MAPPO run
+ZOO_ENVS = 32  # the reference's off-policy zoo protocol (RESULTS.md:595-600)
+# The on-policy band (12 iterations lose at most 2.0) does not hold for the
+# reference's own off-policy learners: before they learn, their reward falls
+# with the episodes' progress and the first updates (the JAX package on the
+# CPU, tools/offpolicy_early_rewards.py: MADDPG -4.44 -> -55.53 in 12
+# iterations).  Their band: every iteration finite and above this floor.
+ZOO_FLOOR = -100.0
 ONPOLICY_KINDS = ("rmappo", "discrete", "separated")
 
 
@@ -1162,20 +1192,21 @@ def phase_onpolicy(dev, kmods, kind, num_envs):
     return dict(rate=rate, split=split, counts=counts, learner=(learn, lstate, gl))
 
 
-def phase_eval(learner):
-    """eval of a checkpoint written by the RMAPPO path, on the card, in a
-    process of its own, as a user runs it: 2 episodes, finite returns."""
+def phase_eval(learner, name="rmappo", extra=("--episode-length", "25")):
+    """eval of a checkpoint written by the path of learner ``name``, on the
+    card, in a process of its own, as a user runs it: 2 episodes, finite
+    returns."""
     import shutil
 
     from gym_formation_tpu_torch.utils import save_checkpoint
 
     algo, state, g = learner
     root = os.path.dirname(os.path.abspath(__file__))
-    ckpt = os.path.join(root, "build", "chip_smoke_rmappo", "ckpt")
+    ckpt = os.path.join(root, "build", f"chip_smoke_{name}", "ckpt")
     shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
-    save_checkpoint(ckpt, state[0].update_i, algo.checkpoint_tree(*state, g))
-    cmd = [sys.executable, "-m", "gym_formation_tpu_torch.eval", "--policy", "ckpt", "--algo", "rmappo",
-           "--ckpt", ckpt, "--episodes", "2", "--episode-length", "25"]
+    save_checkpoint(ckpt, 1, algo.checkpoint_tree(*state, g))
+    cmd = [sys.executable, "-m", "gym_formation_tpu_torch.eval", "--policy", "ckpt", "--algo", name,
+           "--ckpt", ckpt, "--episodes", "2", *extra]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
     require(out.returncode == 0, f"eval exited {out.returncode}: {out.stderr[-2000:]}")
@@ -1183,17 +1214,201 @@ def phase_eval(learner):
     require(len(returns) == 2 and all(np.isfinite(returns)), f"eval: returns {returns}")
     for line in out.stdout.splitlines():
         print(f"  eval: {line}")
-    print(f"eval --policy ckpt --algo rmappo: 2 episodes on the card in {time.perf_counter() - t0:.2f} s "
+    print(f"eval --policy ckpt --algo {name}: 2 episodes on the card in {time.perf_counter() - t0:.2f} s "
           f"(process included), returns {returns}")
+
+
+# -- the feed-forward off-policy zoo at N=3 ----------------------------------------
+# kind: (algorithm name, discrete env, config overrides)
+OFFPOLICY_KINDS = {
+    "maddpg": ("maddpg", False, {}),
+    "ddpg": ("ddpg", False, {}),
+    "maddpg_discrete": ("maddpg", True, {}),
+    "maddpg_per_ou": ("maddpg", False, {"use_per": True, "ou_noise": True}),
+    "matd3": ("matd3", False, {}),
+    "matd3_discrete": ("matd3", True, {}),
+    "masac": ("masac", False, {}),
+    "masac_discrete": ("masac", True, {}),
+    "qmix": ("qmix", True, {}),
+    "vdn": ("vdn", True, {}),
+}
+
+
+def offpolicy_algo(kind, dev):
+    """The learner of an off-policy path at N=3 with B=32 envs and its
+    config's defaults (the reference's zoo protocol: hidden (64, 64, 64),
+    batch 256, a buffer of 500,000, 32 env steps and 32 updates an
+    iteration; QMix its own)."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import make_algo
+
+    name, discrete, cfg = OFFPOLICY_KINDS[kind]
+    env = gt.make_env("formation_hd_env", num_agents=3, discrete_action=discrete)
+    return make_algo(name, env, ZOO_ENVS, sets=[f"{k}={v}" for k, v in cfg.items()], device=dev)
+
+
+def offpolicy_split(algo, state, g):
+    """One iteration as train_step runs it, with CUDA events between the
+    collection and the updates.  Returns the ms of each."""
+    ts, buf, es, obs = state
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.no_grad():
+        es, obs, _, _ = algo._collect(ts, buf, es, obs, g)
+    ev[1].record()
+    ms = [algo._train_once(ts, buf, g) for _ in range(algo.cfg.updates_per_iter)]
+    ev[2].record()
+    torch.cuda.synchronize()
+    require(all(np.isfinite(float(v)) for m in ms for v in m.values()), "split iteration: non-finite metrics")
+    state[2], state[3] = es, obs
+    return dict(collect=ev[0].elapsed_time(ev[1]), update=ev[1].elapsed_time(ev[2]))
+
+
+def _trained(ts):
+    """(name, tensor) of every trained or target parameter of a state."""
+    import dataclasses
+
+    out = []
+    for f in dataclasses.fields(ts):
+        v = getattr(ts, f.name)
+        if isinstance(v, torch.nn.Module):
+            out += [(f"{f.name}.{k}", p) for k, p in v.named_parameters()]
+        elif isinstance(v, torch.nn.Parameter):
+            out.append((f.name, v))
+    return out
+
+
+def offpolicy_card_vs_cpu(kind, dev):
+    """Updates on the card and on the CPU from the same networks, on one
+    batch of 256 transitions made with numpy and the same draws (PER
+    weights too): every parameter, target and temperature within rtol 5e-3,
+    atol 5e-5, and the losses within 1e-3 relative, as the on-policy
+    phases hold them.  Two updates, so that MATD3's second skips its actor:
+    there the card's actor stays as the first update left it."""
+    import copy
+
+    from gym_formation_tpu_torch.algos import QMix
+
+    cpu, card = offpolicy_algo(kind, torch.device("cpu")), offpolicy_algo(kind, dev)
+    g = torch.Generator()
+    g.manual_seed(5)
+    nets = cpu._networks(g)
+    ts_cpu, ts_card = cpu.init_state(**copy.deepcopy(nets)), card.init_state(**copy.deepcopy(nets))
+    M, N, da = cpu.cfg.batch_size, cpu.n_agents, cpu.act_dim
+    rng = np.random.RandomState(8)
+    for k in range(2):
+        action = (np.eye(da)[rng.randint(0, da, (M, N))] if cpu.discrete
+                  else rng.uniform(-1, 1, (M, N, da)))
+        batch = {"obs": rng.uniform(-1.5, 1.5, (M, N, cpu.obs_dim)), "action": action,
+                 "reward": rng.normal(size=(M, N)) - 3.0,
+                 "next_obs": rng.uniform(-1.5, 1.5, (M, N, cpu.obs_dim)), "done": rng.uniform(size=M) < 0.1}
+        batch = {k2: torch.as_tensor(v, dtype=torch.bool if k2 == "done" else torch.float32)
+                 for k2, v in batch.items()}
+        extra = ()
+        if not isinstance(cpu, QMix):
+            extra = (cpu._update_draws(g, M),)
+            if getattr(cpu.cfg, "use_per", False):
+                extra += (torch.as_tensor(rng.uniform(0.2, 1.0, M), dtype=torch.float32),)
+        to_dev = lambda x: ({k2: v.to(dev) for k2, v in x.items()} if isinstance(x, dict) else x.to(dev))
+        actor_before = [p.detach().clone() for p in ts_card.actor.parameters()] if hasattr(ts_card, "actor") else []
+        m_cpu = cpu._update_once(ts_cpu, batch, *extra)
+        m_card = card._update_once(ts_card, to_dev(batch), *map(to_dev, extra))
+        for (name, x), (_, y) in zip(_trained(ts_card), _trained(ts_cpu)):
+            check_close(x.detach().cpu(), y.detach(), 5e-5, 5e-3, f"{kind} card vs CPU update {k}: {name}")
+        for key in m_cpu:
+            if key == "td_abs":
+                continue
+            a, b = float(m_card[key]), float(m_cpu[key])
+            require(abs(a - b) <= 1e-3 * abs(b) + 1e-6, f"{kind} card vs CPU update {k}: {key} {a} vs {b}")
+        if kind.startswith("matd3") and k == 1:
+            require(all(torch.equal(p, q) for p, q in zip(actor_before, ts_card.actor.parameters())),
+                    f"{kind}: the actor moved on an update the delay skips")
+    print(f"{kind} N=3 two _update_once calls of batch {M} (the same networks, batches and draws): card and CPU "
+          f"agree (params rtol 5e-3 atol 5e-5, losses 1e-3)"
+          + ("; the delayed update left the actor as it was" if kind.startswith("matd3") else ""))
+
+
+def phase_offpolicy(dev, kmods, kind, full=True):
+    """An off-policy path at N=3 through train_step on the card: one warm-up
+    iteration and 3 timed ones, each closed by a host fetch of the metrics
+    and a finiteness check; K1 and K2 once an env step, K3-K9 never.
+    Training env-steps/s, the collect / update split, the peak device
+    memory, and the path's own checks.  With ``full``, also the card
+    against the CPU on two updates and 12 iterations from a fresh learner
+    in the on-policy phases' loose band.  Returns the rate, split, launches,
+    peak memory and the learner."""
+    label = f"{kind} N=3 B={ZOO_ENVS}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    algo = offpolicy_algo(kind, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = list(algo.init(g))
+    state, _, _ = onpolicy_iterations(algo, state, g, 1, f"{label} warm-up")
+    reset_counts(*kmods)
+    state, host, walls = onpolicy_iterations(algo, state, g, TIMED_ITERS, label)
+    counts = launch_counts(kmods)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    T = algo.cfg.steps_per_iter
+    print(f"{label}: launches in {TIMED_ITERS} iterations {counts}")
+    for name in ("pairforce_sym", "reward_sym"):
+        require(counts[name] == T * TIMED_ITERS, f"{label}: {name} not once an env step")
+    for name in ("fused_step", "fused_rollout", "fused_collect", "fused_ppo_grad", "pairforce", "reward",
+                 "pairforce_cull"):
+        require(counts[name] == 0, f"{label}: {name} launched")
+    rate = T * ZOO_ENVS / statistics.median(walls)
+    print(f"training env-steps/s {label}: {rate:.1f} "
+          f"(iteration walls {', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; {algo.cfg.updates_per_iter} updates "
+          f"of batch {algo.cfg.batch_size} an iteration)")
+    split = offpolicy_split(algo, state, g)
+    print(f"{label} iteration: {fmt_split(split)}; peak device memory {peak:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before the path")
+    ts, buf = state[0], state[1]
+    if algo.discrete and not kind.startswith("masac"):
+        a = buf.action[:buf.size]
+        require(bool(((a == 0) | (a == 1)).all()) and bool((a.sum(-1) == 1).all()),
+                f"{label}: stored actions are not one-hots")
+        print(f"{label}: the {a.shape[0] * a.shape[1]} stored actions are one-hots")
+    if getattr(algo.cfg, "use_per", False):
+        pr = buf.priority[:buf.size]
+        _, _, w = buf.sample_prioritized(g, algo.cfg.batch_size, algo.cfg.per_alpha, 0.4)
+        require(bool(torch.isfinite(pr).all() and (pr > 0).all()), f"{label}: priorities not finite and positive")
+        require(bool((w <= 1).all() and (w > 0).all()), f"{label}: PER weights outside (0, 1]")
+        print(f"{label}: {buf.size} priorities finite and positive (max {float(pr.max()):.4f}), weights in (0, 1]")
+    if kind.startswith("masac"):
+        alpha = torch.exp(ts.log_alpha.detach()).cpu()
+        require(bool((alpha != algo.cfg.init_alpha).all()), f"{label}: alpha did not move: {alpha}")
+        print(f"{label}: alpha {algo.cfg.init_alpha} -> {alpha.tolist()}")
+    out = dict(rate=rate, split=split, counts=counts, peak_mib=peak, learner=(algo, state, g))
+    if not full:
+        return out
+
+    offpolicy_card_vs_cpu(kind, dev)
+    learn = offpolicy_algo(kind, dev)
+    gl = torch.Generator(device=dev)
+    gl.manual_seed(1)
+    lstate = list(learn.init(gl))
+    rewards = []
+    for _ in range(12):
+        *lstate, m = learn.train_step(*lstate, gl)
+        rewards.append(float(m["mean_step_reward"]))
+    require(all(np.isfinite(rewards)) and min(rewards) > ZOO_FLOOR,
+            f"{label}: mean_step_reward left the band: {rewards}")
+    print(f"{label} 12 iterations: mean_step_reward {rewards[0]:.4f} -> {rewards[-1]:.4f} "
+          f"(lowest {min(rewards):.4f}, floor {ZOO_FLOOR})")
+    return out
 
 
 def phase_k1k2_n3(dev, rng):
     """K1 and K2 against their plain versions at the N=3 paths' shape (the
-    hd env's colliding subset: 3 agents of size 0.03), B=128 and 512:
-    random states, pairs in exact contact, in deep penetration and at zero
-    distance; K1 atol = rtol = 1e-3, K2 Hausdorff atol 1e-5, counts equal,
-    two launches bit for bit.  Returns each kernel's max error and its time
-    beside its plain version's and its bound at B=512."""
+    hd env's colliding subset: 3 agents of size 0.03), B=32 (the off-policy
+    zoo), 128 and 512: random states, pairs in exact contact, in deep
+    penetration and at zero distance; K1 atol = rtol = 1e-3, K2 Hausdorff
+    atol 1e-5, counts equal, two launches bit for bit.  Returns each
+    kernel's max error and its time beside its plain version's and its
+    bound at B=32 and 512."""
     import gym_formation_tpu_torch as gt
     from gym_formation_tpu_torch.core.physics import _collide_subset
     from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
@@ -1204,7 +1419,7 @@ def phase_k1k2_n3(dev, rng):
     p = k1._params(cfg)
     errs = {"k1": 0.0, "k2": 0.0}
     f = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev).contiguous()
-    for B in (RMAPPO_ENVS, MAPPO_ENVS):
+    for B in (ZOO_ENVS, RMAPPO_ENVS, MAPPO_ENVS):
         contact = rng.uniform(-0.5, 0.5, (B, n, 2))
         third = B // 3
         contact[:third, 1] = contact[:third, 0] + [0.06, 0.0]  # exact contact (K1: 2 x size)
@@ -1233,18 +1448,19 @@ def phase_k1k2_n3(dev, rng):
             print(f"K1/K2 n=3 {label} B={B}: K1 max abs err {max_err(got, want):.3e} (atol=rtol=1e-3), "
                   f"K2 haus {max_err(h, h_p):.3e} (atol 1e-5), counts equal ({int(nc.sum())} collisions), "
                   f"two launches bit for bit")
-    B = MAPPO_ENVS
-    pos, ish = f(rng.uniform(-0.5, 0.5, (B, n, 2))), f(rng.uniform(-1, 1, (B, n, 2)))
     out = {}
-    for name, kern, plain, bnd in (
-            ("K1", lambda: k1.collision_forces_sym(pos, cfg), lambda: k1.collision_forces_sym_plain(pos, **p),
-             bound(16 * B * n, B * pair_ops(n * (n - 1)))),
-            ("K2", lambda: k2.hd_reward_stats_sym(pos, ish, thresh=THRESH),
-             lambda: k2.hd_reward_stats_sym_plain(pos, ish, thresh=THRESH),
-             bound(16 * B * n + 4 * B + 4 * B * n, B * stat_ops(n)))):
-        ms, plain_ms = time_pair(kern, plain)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
-        print(f"{name} n=3 B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms ({bnd[1]})")
+    for B in (ZOO_ENVS, MAPPO_ENVS):
+        pos, ish = f(rng.uniform(-0.5, 0.5, (B, n, 2))), f(rng.uniform(-1, 1, (B, n, 2)))
+        for name, kern, plain, bnd in (
+                ("K1", lambda: k1.collision_forces_sym(pos, cfg), lambda: k1.collision_forces_sym_plain(pos, **p),
+                 bound(16 * B * n, B * pair_ops(n * (n - 1)))),
+                ("K2", lambda: k2.hd_reward_stats_sym(pos, ish, thresh=THRESH),
+                 lambda: k2.hd_reward_stats_sym_plain(pos, ish, thresh=THRESH),
+                 bound(16 * B * n + 4 * B + 4 * B * n, B * stat_ops(n)))):
+            ms, plain_ms = time_pair(kern, plain)
+            out[name, B] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bnd[0], bound_by=bnd[1])
+            print(f"{name} n=3 B={B}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd[0]:.6f} ms "
+                  f"({bnd[1]})")
     return errs, out
 
 
@@ -1665,6 +1881,23 @@ def main() -> int:
     # -- 24. eval -------------------------------------------------------------
     phase("eval of an RMAPPO checkpoint")
     phase_eval(onpolicy["rmappo"]["learner"])
+
+    # -- 25-28. the feed-forward off-policy zoo at N=3 -------------------------
+    zoo = {}
+    for title, main_kind, side in (("MADDPG", "maddpg", ("ddpg", "maddpg_discrete", "maddpg_per_ou")),
+                                   ("MATD3", "matd3", ("matd3_discrete",)),
+                                   ("MASAC", "masac", ("masac_discrete",)),
+                                   ("QMIX and VDN", "qmix", ("vdn",))):
+        phase(f"{title} N=3 path")
+        zoo[main_kind] = phase_offpolicy(dev, kmods, main_kind)
+        for kind in side:
+            zoo[kind] = phase_offpolicy(dev, kmods, kind, full=False)
+            del zoo[kind]["learner"]  # its buffer leaves the card
+
+    # -- 29. eval of off-policy checkpoints -------------------------------------
+    phase("eval of a MADDPG and a QMIX checkpoint")
+    phase_eval(zoo["maddpg"]["learner"], "maddpg", ())
+    phase_eval(zoo["qmix"]["learner"], "qmix", ())
 
     # bounds from this run's shapes (see bound())
     B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]

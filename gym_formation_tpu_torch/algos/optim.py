@@ -1,12 +1,15 @@
-"""The learner's optimizer, written out by hand.
+"""The learners' optimizer, written out by hand.
 
 Counterpart of ``optax.chain(optax.clip_by_global_norm(max_norm),
-optax.adam(lr, eps=eps))`` as MAPPO builds it
-(``gym_formation_tpu/algos/mappo.py:251-254``), step for step:
+optax.adam(lr, eps=eps))`` as MAPPO and QMix build it
+(``gym_formation_tpu/algos/mappo.py:251-254``, ``qmix.py:117``), and of the
+plain ``optax.adam(lr)`` of MADDPG, MATD3 and MASAC (``max_norm=None``),
+step for step:
 
 - clip: every gradient is scaled by ``max_norm / ‖g‖`` when the global norm
   ``‖g‖`` over all of them is at least ``max_norm``.  This is not
   ``torch.nn.utils.clip_grad_norm_``, which divides by ``‖g‖ + 1e-6``.
+  ``max_norm=None`` skips it.
 - Adam: bias-corrected moments, ``eps`` outside the square root, and the
   update ``-lr · m̂ / (√v̂ + eps)`` added to the parameter.
 
@@ -17,7 +20,7 @@ parameters in place and returns the new state.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -29,7 +32,8 @@ class AdamState(NamedTuple):
 
 
 class ClipAdam:
-    def __init__(self, lr: float, max_norm: float, eps: float = 1e-8, b1: float = 0.9, b2: float = 0.999):
+    def __init__(self, lr: float, max_norm: Optional[float] = None, eps: float = 1e-8, b1: float = 0.9,
+                 b2: float = 0.999):
         self.lr, self.max_norm, self.eps, self.b1, self.b2 = lr, max_norm, eps, b1, b2
 
     def init(self, params: Sequence[torch.Tensor]) -> AdamState:
@@ -45,7 +49,8 @@ class ClipAdam:
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: AdamState) -> AdamState:
-        grads = self.clip(grads)
+        if self.max_norm is not None:
+            grads = self.clip(grads)
         b1, b2 = self.b1, self.b2
         count = state.count + 1
         mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]

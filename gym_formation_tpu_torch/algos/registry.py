@@ -3,7 +3,9 @@
 
 Counterpart of ``gym_formation_tpu/algos/registry.py``.  The name tuples are
 the JAX package's 13 ``--algo`` names; the port builds the on-policy family
-(``mappo``, ``rmappo``), and the other names raise ``NotImplementedError``.
+(``mappo``, ``rmappo``) and the feed-forward off-policy one (``maddpg``,
+``ddpg``, ``matd3``, ``masac``, ``qmix``, ``vdn``); the recurrent off-policy
+names raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,28 +27,46 @@ RECURRENT = ("rmappo", "rmaddpg", "rmatd3", "rmasac", "rqmix", "rvdn")
 ONPOLICY = ("mappo", "rmappo")
 #: episodic recurrent off-policy: training tuple (ts, buffer)
 EPISODIC = ("rmaddpg", "rmatd3", "rmasac", "rqmix", "rvdn")
+#: feed-forward off-policy: training tuple (ts, buffer, env_state, obs)
+OFFPOLICY = ("maddpg", "ddpg", "matd3", "masac", "qmix", "vdn")
 
 
 def _require_ported(name: str) -> None:
     if name not in ALGO_NAMES:
         raise ValueError(f"unknown algorithm {name!r}; choose from {ALGO_NAMES}")
-    if name not in ONPOLICY:
-        raise NotImplementedError(f"{name} is not yet ported: the port has {', '.join(ONPOLICY)}")
+    if name in EPISODIC:
+        raise NotImplementedError(f"{name} is not yet ported: the port has {', '.join(ONPOLICY + OFFPOLICY)}")
 
 
 def make_algo(name: str, env, num_envs: int, sets: Sequence[str] = (),
               config_yaml: Optional[str] = None, lr: Optional[float] = None, device="cuda",
               config: Optional[Mapping] = None):
     """The learner ``name`` over ``env`` on ``device``: config defaults ←
-    ``config`` (a checkpoint's) ← ``config_yaml`` ← ``lr`` ← the
-    ``key=value`` strings of ``sets``."""
+    ``config`` (a checkpoint's) ← ``config_yaml`` ← ``lr`` ← what the name
+    implies (``ddpg``: ``centralized=False``; ``qmix``/``vdn``: the mixer)
+    ← the ``key=value`` strings of ``sets``.  ``lr`` sets both
+    ``lr_actor`` and ``lr_critic`` of the MADDPG family."""
     from ..utils.config import load_config
+    from .maddpg import MADDPG, MADDPGConfig
     from .mappo import MAPPO, MAPPOConfig
+    from .masac import MASAC, MASACConfig
+    from .matd3 import MATD3, MATD3Config
+    from .qmix import QMix, QMixConfig
     from .rmappo import RMAPPO, RMAPPOConfig
 
     _require_ported(name)
-    cls, cfg_cls = (MAPPO, MAPPOConfig) if name == "mappo" else (RMAPPO, RMAPPOConfig)
-    overrides = ([f"lr={lr}"] if lr is not None else []) + list(sets)
+    cls, cfg_cls, implied = {
+        "mappo": (MAPPO, MAPPOConfig, []),
+        "rmappo": (RMAPPO, RMAPPOConfig, []),
+        "maddpg": (MADDPG, MADDPGConfig, ["centralized=True"]),
+        "ddpg": (MADDPG, MADDPGConfig, ["centralized=False"]),
+        "matd3": (MATD3, MATD3Config, []),
+        "masac": (MASAC, MASACConfig, []),
+        "qmix": (QMix, QMixConfig, ["mixer=qmix"]),
+        "vdn": (QMix, QMixConfig, ["mixer=vdn"]),
+    }[name]
+    lr_keys = ("lr_actor", "lr_critic") if issubclass(cfg_cls, MADDPGConfig) else ("lr",)
+    overrides = ([f"{k}={lr}" for k in lr_keys] if lr is not None else []) + implied + list(sets)
     return cls(env, load_config(cfg_cls, config_yaml, overrides, base=config), num_envs=num_envs, device=device)
 
 
@@ -56,8 +76,12 @@ def eval_policy(name: str, algo, ts, batch_size: int, clip_continuous: bool = Tr
 
     Returns ``(policy_fn, carry0)`` with ``policy_fn(obs, carry) ->
     (actions, carry)`` over a ``[batch_size, N, obs_dim]`` observation.
-    Continuous actions are clipped to ±1 unless ``clip_continuous`` is
-    False.  mappo takes the mode of its distribution, or with
+    Continuous actions are clipped to ±``high_action`` (1 where the config
+    has none) unless ``clip_continuous`` is False.  maddpg, ddpg and matd3
+    take the actors' actions, masac ``tanh(mean) · high_action`` (unclipped,
+    already in range), qmix and vdn the greedy one-hots of the shared Q;
+    discrete actors give the one-hot of their logits' argmax.  mappo takes
+    the mode of its distribution, or with
     ``stochastic`` a sample, drawn from a generator seeded by ``seed``
     (the carry).  rmappo threads ``(hidden [batch, N, H], reset flags
     [batch])``: call with ``carry0`` at each episode start, whose set reset
@@ -65,9 +89,10 @@ def eval_policy(name: str, algo, ts, batch_size: int, clip_continuous: bool = Tr
     """
     _require_ported(name)
     dtype = algo.dtype
+    high = getattr(algo.cfg, "high_action", 1.0)
 
     def finish(a):
-        return a if algo.discrete or not clip_continuous else a.clamp(-1.0, 1.0)
+        return a if algo.discrete or not clip_continuous else a.clamp(-high, high)
 
     if name == "mappo":
         if stochastic:
@@ -87,6 +112,15 @@ def eval_policy(name: str, algo, ts, batch_size: int, clip_continuous: bool = Tr
         return mode, None
     if stochastic:
         raise SystemExit("--stochastic eval is implemented for mappo only")
+    if name in OFFPOLICY:
+        # masac's tanh(mean) · high_action is in range already
+        clip = name != "masac"
+
+        def feedforward(obs, carry=None):
+            a = algo.eval_actions(ts, obs)
+            return (finish(a) if clip else a), carry
+
+        return feedforward, None
     carry0 = (torch.zeros(batch_size, algo.n_agents, algo.cfg.gru_hidden, dtype=dtype, device=algo.device),
               torch.ones(batch_size, dtype=torch.bool, device=algo.device))
 

@@ -3,13 +3,16 @@ scripted ezpolicy, run for a few episodes, with per-episode returns and the
 benchmark quartet.
 
     python -m gym_formation_tpu_torch.eval --policy ckpt --algo rmappo --ckpt runs/<run>/ckpt
+    python -m gym_formation_tpu_torch.eval --policy ckpt --algo qmix --ckpt runs/<run>/ckpt
     python -m gym_formation_tpu_torch.eval --policy ckpt --ckpt runs/<run>/ckpt --num-layer 2
     python -m gym_formation_tpu_torch.eval --policy ezpolicy --num-agents 3 --num-layer 2
     python -m gym_formation_tpu_torch.eval --device cpu --episodes 1
 
 The arguments and refusals are those of the JAX package's root ``eval.py``,
-plus ``--device`` (default ``cuda``).  ``--num-layer L`` expands an
-n-agent policy over n^L agents through the BFS hierarchy.  ``--gif`` and
+plus ``--device`` (default ``cuda``).  The learner is built from the
+checkpoint's own config.  ``--num-layer L`` expands an n-agent policy over
+n^L agents through the BFS hierarchy: of the checkpoints, only a
+shared-policy MAPPO one can be expanded.  ``--gif`` and
 ``--per-agent-view`` stop: the renderer is not yet ported.
 """
 
@@ -21,7 +24,7 @@ import numpy as np
 import torch
 
 import gym_formation_tpu_torch as gt
-from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, ONPOLICY, eval_policy, make_algo
+from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, EPISODIC, eval_policy, make_algo
 from gym_formation_tpu_torch.utils import restore_checkpoint
 
 
@@ -50,6 +53,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+NO_BFS_CKPT = ("--num-layer > 1 with a checkpoint requires a shared stateless actor (mappo): per-agent stacked "
+               "actors have no meta-agent assignment and recurrent actors have no per-group hidden state")
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.gif or args.per_agent_view:
@@ -67,13 +74,19 @@ def main(argv=None) -> None:
         raise SystemExit("--stochastic applies to direct (--num-layer 1) mappo checkpoint evals: the "
                          "BFS expansion feeds deterministic meta-velocities")
     if args.num_layer > 1 and args.policy == "ckpt" and args.algo != "mappo":
-        raise SystemExit("--num-layer > 1 with a checkpoint requires a shared stateless actor (mappo): "
-                         "recurrent actors have no per-group hidden state")
-    if args.policy == "ckpt" and args.algo not in ONPOLICY:
-        raise SystemExit(f"--algo {args.algo} is not yet ported: this port evaluates {' and '.join(ONPOLICY)}")
+        raise SystemExit(NO_BFS_CKPT)
+    if args.policy == "ckpt" and args.algo in EPISODIC:
+        raise SystemExit(f"--algo {args.algo} is not yet ported: the port has no recurrent off-policy learner")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: evaluate on the CPU with --device cpu")
+    tree = None
+    if args.policy == "ckpt":
+        if not args.ckpt:
+            raise SystemExit("--ckpt is required with --policy ckpt")
+        tree = restore_checkpoint(args.ckpt)
+        if args.num_layer > 1 and not tree["config"]["share_policy"]:
+            raise SystemExit(NO_BFS_CKPT)
 
     kw = {}
     if args.episode_length is not None:
@@ -83,11 +96,8 @@ def main(argv=None) -> None:
     use_bfs = args.num_layer > 1 and args.scenario == "formation_hd_env"
 
     carry0, ckpt_policy = None, None
-    if args.policy == "ckpt":
-        if not args.ckpt:
-            raise SystemExit("--ckpt is required with --policy ckpt")
+    if tree is not None:
         proto_env = gt.make_env(args.scenario, num_agents=n, discrete_action=discrete, **kw)
-        tree = restore_checkpoint(args.ckpt)
         # the learner's config as it was trained (per-agent networks, widths)
         algo = make_algo(args.algo, proto_env, num_envs=1, device=device, config=tree["config"])
         ts = algo.state_from_tree(tree)

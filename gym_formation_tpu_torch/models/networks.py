@@ -1,13 +1,20 @@
-"""The on-policy networks in PyTorch.
+"""The learners' networks in PyTorch.
 
-Counterpart of ``gym_formation_tpu/models/networks.py`` (the parts MAPPO and
-RMAPPO use): a ReLU MLP trunk with orthogonal init, the diagonal-Gaussian
+Counterpart of ``gym_formation_tpu/models/networks.py`` and of the networks
+the off-policy learners define (``algos/matd3.py: TwinQCritic``,
+``algos/masac.py: SquashedGaussianActor``, ``algos/qmix.py: AgentQNet,
+QMixer``): a ReLU MLP trunk with orthogonal init, the diagonal-Gaussian
 actor with a state-independent, soft-bounded log-std, the logits actor of
 the categorical head, the centralized value critic, their per-agent stacked
-forms (``share_policy=False``), and the GRU actor and critic.  Parameter
-names map onto flax's paths (``MLP_0/Dense_k``, ``Dense_0`` for the head,
-``log_std``, ``GRUCell_0``), so that the ``*_from_flax`` functions and
-:func:`to_flax` carry weights across the two packages.  flax stores a Dense
+forms (``share_policy=False``), the GRU actor and critic, and the per-agent
+(stacked) networks of the off-policy zoo, which the JAX package builds with
+``vmap(init)``: the deterministic actor, the Q critic and its twin, the
+tanh-Gaussian actor; QMix's agent network is :class:`LogitsActor` over
+``obs ⊕ one-hot id``, and its mixer :class:`QMixer`.  Parameter names map
+onto flax's paths (``MLP_0/Dense_k``, ``Dense_0`` for the head,
+``log_std``, ``GRUCell_0``, ``CentralizedQCritic_k`` for a twin head), so
+that the ``*_from_flax`` functions and :func:`to_flax` carry weights across
+the two packages.  flax stores a Dense
 kernel as ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``, and a
 stacked layer's ``kernel`` is flax's ``[N, in, out]`` as it is.
 """
@@ -29,6 +36,13 @@ def soft_bound(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """Smoothly bound ``x`` to (lo, hi) with a nonzero gradient everywhere."""
     sp = torch.nn.functional.softplus
     return hi - sp(hi - (lo + sp(x - lo)))
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
+    """flax's default kernel init: lecun-normal, truncated at two standard
+    deviations and rescaled to keep the variance ``1 / fan_in``."""
+    std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
 def _linear(fan_in: int, fan_out: int, gain: float, generator: Optional[torch.Generator]) -> nn.Linear:
@@ -177,6 +191,107 @@ class StackedValueCritic(nn.Module):
         return self.head(self.mlp(share_obs)).squeeze(-1)
 
 
+class StackedDeterministicActor(nn.Module):
+    """Per-agent DDPG actors: ``obs [..., N, do] → max_action ·
+    tanh(head(MLP(obs)))`` [..., N, da]."""
+
+    def __init__(self, n: int, obs_dim: int, act_dim: int, max_action: float = 1.0,
+                 hidden: Sequence[int] = (64, 64, 64), generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_action = max_action
+        self.mlp = StackedMLP(n, obs_dim, hidden, generator)
+        self.head = StackedDense(n, hidden[-1], act_dim, 0.01, generator)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.max_action * torch.tanh(self.head(self.mlp(obs)))
+
+
+class StackedQCritic(nn.Module):
+    """Per-agent Q critics: agent i's ``Q_i(obs [..., N, do_in], act [...,
+    N, da_in])`` [..., N], the actions scaled by ``1 / max_action`` before
+    the concatenation.  A centralized critic takes every agent's
+    observations and actions in each row; a local one (DDPG) its own."""
+
+    def __init__(self, n: int, in_dim: int, max_action: float = 1.0, hidden: Sequence[int] = (64, 64, 64),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.max_action = max_action
+        self.mlp = StackedMLP(n, in_dim, hidden, generator)
+        self.head = StackedDense(n, hidden[-1], 1, 1.0, generator)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        x = torch.cat([obs, act / self.max_action], -1)
+        return self.head(self.mlp(x)).squeeze(-1)
+
+
+class StackedTwinQCritic(nn.Module):
+    """Two independent :class:`StackedQCritic` heads on the same input:
+    returns ``(q1, q2)``."""
+
+    def __init__(self, n: int, in_dim: int, max_action: float = 1.0, hidden: Sequence[int] = (64, 64, 64),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.q1 = StackedQCritic(n, in_dim, max_action, hidden, generator)
+        self.q2 = StackedQCritic(n, in_dim, max_action, hidden, generator)
+
+    def forward(self, obs: torch.Tensor, act: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.q1(obs, act), self.q2(obs, act)
+
+
+LOG_STD_MIN, LOG_STD_MAX = -20.0, 2.0
+
+
+class StackedSquashedGaussianActor(nn.Module):
+    """Per-agent SAC actors: ``obs [..., N, do] → (mean, log_std)``, both
+    heads on the MLP, the log-std clipped to [LOG_STD_MIN, LOG_STD_MAX]."""
+
+    def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: Sequence[int] = (64, 64, 64),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.mlp = StackedMLP(n, obs_dim, hidden, generator)
+        self.head = StackedDense(n, hidden[-1], act_dim, 0.01, generator)
+        self.log_std_head = StackedDense(n, hidden[-1], act_dim, 0.01, generator)
+
+    def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        h = self.mlp(obs)
+        return self.head(h), torch.clamp(self.log_std_head(h), LOG_STD_MIN, LOG_STD_MAX)
+
+
+class QMixer(nn.Module):
+    """QMIX's monotonic mixing hypernetwork: the chosen Q's [M, N] mixed
+    with weights made positive (``abs``) from the state [M, ds].  The
+    hypernet layers keep flax's default init (lecun-normal, zero bias),
+    the output layer of ``b2`` orthogonal with gain 1."""
+
+    def __init__(self, n_agents: int, state_dim: int, embed: int = 32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.n_agents, self.embed = n_agents, embed
+
+        def lecun(fan_out):
+            lin = nn.Linear(state_dim, fan_out)
+            with torch.no_grad():
+                _lecun_normal_(lin.weight, state_dim, generator)
+                lin.bias.zero_()
+            return lin
+
+        # flax names a layer when it is constructed: in
+        # ``Dense(1)(relu(Dense(embed)(state)))`` the output layer of b2 is
+        # built first (Dense_3), its inner layer second (Dense_4)
+        self.hyper_w1 = lecun(n_agents * embed)
+        self.hyper_b1 = lecun(embed)
+        self.hyper_w2 = lecun(embed)
+        self.hyper_b2_hidden = lecun(embed)
+        self.hyper_b2 = _linear(embed, 1, 1.0, generator)
+
+    def forward(self, q_chosen: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+        w1 = self.hyper_w1(state).abs().reshape(-1, self.n_agents, self.embed)
+        hidden = torch.nn.functional.elu(torch.einsum("mn,mne->me", q_chosen, w1) + self.hyper_b1(state))
+        w2 = self.hyper_w2(state).abs()
+        b2 = self.hyper_b2(torch.relu(self.hyper_b2_hidden(state)))
+        return (hidden * w2).sum(-1) + b2.squeeze(-1)
+
+
 class GRUCell(nn.Module):
     """flax's ``GRUCell`` in ``torch.nn.GRUCell``'s layout: ``weight_ih``
     [3H, in] and ``weight_hh`` [3H, H] with the gate rows in (r, z, n)
@@ -197,9 +312,8 @@ class GRUCell(nn.Module):
         self.weight_hh = nn.Parameter(torch.empty(3 * H, H))
         self.bias_ih = nn.Parameter(torch.zeros(3 * H))
         self.bias_hn = nn.Parameter(torch.zeros(H))
-        std = 1.0 / math.sqrt(in_dim) / 0.87962566103423978  # flax's truncated lecun_normal
         with torch.no_grad():
-            nn.init.trunc_normal_(self.weight_ih, std=std, a=-2 * std, b=2 * std, generator=generator)
+            _lecun_normal_(self.weight_ih, in_dim, generator)
             for g in range(3):
                 w = torch.empty(H, H)
                 nn.init.orthogonal_(w, generator=generator)
@@ -264,6 +378,21 @@ def onehot_from_logits(logits: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
 
 
+def gumbel(generator: torch.Generator, shape, dtype: torch.dtype, device) -> torch.Tensor:
+    """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform on [tiny, 1)
+    (``jax.random.gumbel``'s range)."""
+    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
+
+
+def gumbel_softmax_st(noise: torch.Tensor, logits: torch.Tensor, tau: float = 1.0) -> torch.Tensor:
+    """Straight-through Gumbel-softmax on the Gumbel ``noise``: the hard
+    one-hot of ``softmax((logits + noise) / tau)`` forward, the softmax's
+    gradient backward."""
+    y = torch.softmax((logits + noise) / tau, -1)
+    return onehot_from_logits(y) + y - y.detach()
+
+
 def categorical_logp(logits: torch.Tensor, action_onehot: torch.Tensor) -> torch.Tensor:
     """log π(a|s) of a one-hot action over the last axis."""
     return (torch.log_softmax(logits, -1) * action_onehot).sum(-1)
@@ -301,7 +430,11 @@ def gaussian_sample(generator: torch.Generator, mean: torch.Tensor, log_std: tor
 
 # the flax module of each top-level submodule name
 _FLAX_MODULE = {"mlp": "MLP_0", "head": "Dense_0", "embed": "Dense_0", "out": "Dense_1",
-                "gru": "GRUCell_0"}
+                "gru": "GRUCell_0", "log_std_head": "Dense_1",
+                "hyper_w1": "Dense_0", "hyper_b1": "Dense_1", "hyper_w2": "Dense_2",
+                "hyper_b2": "Dense_3", "hyper_b2_hidden": "Dense_4"}
+# submodules that hold a whole flax module of their own (a twin critic's heads)
+_FLAX_SCOPE = {"q1": "CentralizedQCritic_0", "q2": "CentralizedQCritic_1"}
 # flax's GRUCell gates in torch's row order (r, z, n), input side and hidden side
 _GATES = {"weight_ih": ("ir", "iz", "in"), "bias_ih": ("ir", "iz", "in"), "weight_hh": ("hr", "hz", "hn")}
 
@@ -310,7 +443,11 @@ def _flax_leaves(name: str, a: np.ndarray):
     """The (flax path, leaf) pairs of the parameter ``name`` holding ``a``:
     ``mlp.layers.1.weight`` → ``(MLP_0, Dense_1, kernel)`` transposed,
     ``head.bias`` → ``(Dense_0, bias)``, a stacked ``kernel`` as it is,
-    ``log_std``; a GRU weight splits into its three gates."""
+    ``log_std``; a GRU weight splits into its three gates;
+    ``q1.head.bias`` → ``(CentralizedQCritic_0, Dense_0, bias)``."""
+    scope, _, rest = name.partition(".")
+    if scope in _FLAX_SCOPE:
+        return [((_FLAX_SCOPE[scope],) + path, x) for path, x in _flax_leaves(rest, a)]
     parts = name.split(".")
     top = _FLAX_MODULE.get(parts[0])
     if top is None:
@@ -333,6 +470,9 @@ def _flax_leaves(name: str, a: np.ndarray):
 def _from_flax_leaf(name: str, p: Dict) -> np.ndarray:
     """Inverse of :func:`_flax_leaves`: parameter ``name`` in the port's
     layout, read from the flax ``params`` dict ``p``."""
+    scope, _, rest = name.partition(".")
+    if scope in _FLAX_SCOPE:
+        return _from_flax_leaf(rest, p[_FLAX_SCOPE[scope]])
     get = lambda path: np.array(functools.reduce(lambda t, k: t[k], path, p))
     parts = name.split(".")
     top = _FLAX_MODULE.get(parts[0])
@@ -442,3 +582,51 @@ def gru_critic_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=
     """A :class:`GRUCritic` holding a flax ``GRUCritic`` tree."""
     in_dim, hidden = _kernel(tree["params"], "Dense_0").shape
     return _load_flax(GRUCritic(in_dim, hidden), tree, dtype, device)
+
+
+def deterministic_actor_from_flax(tree: Dict, max_action: float = 1.0, dtype: torch.dtype = torch.float32,
+                                  device=None) -> StackedDeterministicActor:
+    """A :class:`StackedDeterministicActor` holding the JAX package's
+    per-agent ``DeterministicActor`` tree (leaves [N, ...])."""
+    p = tree["params"]
+    in_dim, hidden, act_dim = _mlp_dims(p)
+    n = _kernel(p, "Dense_0").shape[0]
+    return _load_flax(StackedDeterministicActor(n, in_dim, act_dim, max_action, hidden), tree, dtype, device)
+
+
+def q_critic_from_flax(tree: Dict, max_action: float = 1.0, dtype: torch.dtype = torch.float32,
+                       device=None) -> StackedQCritic:
+    """A :class:`StackedQCritic` holding the per-agent
+    ``CentralizedQCritic`` tree (centralized or local widths)."""
+    p = tree["params"]
+    in_dim, hidden, _ = _mlp_dims(p)
+    n = _kernel(p, "Dense_0").shape[0]
+    return _load_flax(StackedQCritic(n, in_dim, max_action, hidden), tree, dtype, device)
+
+
+def twin_q_critic_from_flax(tree: Dict, max_action: float = 1.0, dtype: torch.dtype = torch.float32,
+                            device=None) -> StackedTwinQCritic:
+    """A :class:`StackedTwinQCritic` holding the per-agent ``TwinQCritic``
+    tree of MATD3 and MASAC."""
+    p = tree["params"]["CentralizedQCritic_0"]
+    in_dim, hidden, _ = _mlp_dims(p)
+    n = _kernel(p, "Dense_0").shape[0]
+    return _load_flax(StackedTwinQCritic(n, in_dim, max_action, hidden), tree, dtype, device)
+
+
+def squashed_actor_from_flax(tree: Dict, dtype: torch.dtype = torch.float32,
+                             device=None) -> StackedSquashedGaussianActor:
+    """A :class:`StackedSquashedGaussianActor` holding the per-agent
+    ``SquashedGaussianActor`` tree of MASAC."""
+    p = tree["params"]
+    in_dim, hidden, act_dim = _mlp_dims(p)
+    n = _kernel(p, "Dense_0").shape[0]
+    return _load_flax(StackedSquashedGaussianActor(n, in_dim, act_dim, hidden), tree, dtype, device)
+
+
+def qmixer_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> QMixer:
+    """A :class:`QMixer` holding the JAX package's ``QMixer`` tree."""
+    p = tree["params"]
+    state_dim, embed = _kernel(p, "Dense_1").shape
+    n_agents = _kernel(p, "Dense_0").shape[1] // embed
+    return _load_flax(QMixer(n_agents, state_dim, embed), tree, dtype, device)

@@ -1,18 +1,23 @@
-"""Training entry point of the port (the on-policy learners on the formation envs).
+"""Training entry point of the port (the learners on the formation envs).
 
     python -m gym_formation_tpu_torch.train --algo mappo --scenario formation_hd_env \\
         --num-agents 3 --num-envs 4096 --iters 500
     python -m gym_formation_tpu_torch.train --algo rmappo --num-envs 128 --episode-length 25
     python -m gym_formation_tpu_torch.train --discrete-action --set share_policy=False
+    python -m gym_formation_tpu_torch.train --algo masac --num-envs 32 --iters 1000
+    python -m gym_formation_tpu_torch.train --algo maddpg --set use_per=True --set ou_noise=True
+    python -m gym_formation_tpu_torch.train --algo qmix
     python -m gym_formation_tpu_torch.train --device cpu --num-envs 8 --iters 2
     python -m gym_formation_tpu_torch.train --restore --run-dir runs/my_run
 
-The arguments are the JAX package's ``train.py`` ones for ``mappo`` and
-``rmappo`` (the other algorithms are not yet ported), plus ``--device``
+The arguments are the JAX package's ``train.py`` ones for ``mappo``,
+``rmappo``, ``maddpg``, ``ddpg``, ``matd3``, ``masac``, ``qmix`` and ``vdn``
+(the recurrent off-policy algorithms are not yet ported), plus ``--device``
 (default ``cuda``; without a CUDA device the run stops unless ``--device
 cpu`` is given).  Every ``--log-every`` iterations one row of
 metrics goes to ``<run-dir>/metrics.jsonl``; every ``--save-every``
-iterations the whole training tuple goes to ``<run-dir>/ckpt/``.
+iterations the whole training tuple goes to ``<run-dir>/ckpt/``, an
+off-policy learner's replay buffer included.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import time
 import torch
 
 import gym_formation_tpu_torch as gt
-from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, ONPOLICY, make_algo
+from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, EPISODIC, ONPOLICY, make_algo
 from gym_formation_tpu_torch.utils import MetricsLogger, latest_step, restore_checkpoint, save_checkpoint
 
 # the algorithms that take --discrete-action (the JAX package's list)
@@ -45,7 +50,8 @@ def parse_args(argv=None):
                    help="override a field of the algorithm's config, repeatable (e.g. --set ppo_epochs=5)")
     p.add_argument("--config", default=None, help="YAML file of config overrides; --set wins")
     p.add_argument("--discrete-action", action="store_true",
-                   help="5-way discrete action env: mappo and rmappo take a categorical head")
+                   help="5-way discrete action env: mappo and rmappo take a categorical head, maddpg/ddpg/matd3/"
+                   "masac logits actors")
     p.add_argument("--benchmark", action="store_true",
                    help="build the env with benchmark=True and log the bench_* means")
     p.add_argument("--run-dir", default=None)
@@ -57,13 +63,28 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def switches(name: str, algo) -> str:
+    """The learner family's own switches, for the start-up line."""
+    cfg = algo.cfg
+    if name in ONPOLICY:
+        on = dict(share_policy=cfg.share_policy, fused_collect=algo.fused_collect,
+                  structured_obs=algo.structured_obs, fused_update=cfg.fused_update)
+    elif name == "masac":
+        on = dict(autotune_alpha=cfg.autotune_alpha, warmup_random_steps=cfg.warmup_random_steps)
+    elif name in DISCRETE_ONLY:
+        on = dict(mixer=cfg.mixer, double_q=cfg.double_q, hard_interval=cfg.hard_interval)
+    else:
+        on = dict(centralized=cfg.centralized, use_per=cfg.use_per, ou_noise=cfg.ou_noise)
+    return " ".join(f"{k}={v}" for k, v in on.items())
+
+
 def main(argv=None) -> None:
     args = parse_args(argv)
     if args.discrete_action and args.algo not in DISCRETE_OK:
         raise SystemExit("--discrete-action is supported by maddpg/ddpg/matd3/masac (the gumbel-softmax "
                          "paths) and mappo/rmappo (categorical heads); qmix/vdn variants are discrete by default")
-    if args.algo not in ONPOLICY:
-        raise SystemExit(f"--algo {args.algo} is not yet ported: this port trains {' and '.join(ONPOLICY)}")
+    if args.algo in EPISODIC:
+        raise SystemExit(f"--algo {args.algo} is not yet ported: the port has no recurrent off-policy learner")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: train on the CPU with --device cpu")
@@ -92,9 +113,8 @@ def main(argv=None) -> None:
         print(f"restored checkpoint at iteration {step} from {ckpt_dir}")
 
     print(f"{args.algo} on {args.scenario} N={args.num_agents} B={args.num_envs} device={device} "
-          f"discrete={algo.discrete} share_policy={cfg.share_policy}: fused_collect={algo.fused_collect} "
-          f"structured_obs={algo.structured_obs} fused_update={cfg.fused_update}")
-    steps_per_iter = cfg.rollout_len * args.num_envs
+          f"discrete={algo.discrete}: {switches(args.algo, algo)}")
+    steps_per_iter = (cfg.rollout_len if args.algo in ONPOLICY else cfg.steps_per_iter) * args.num_envs
     logger = MetricsLogger(run_dir)
     for i in range(start, start + args.iters):
         *state, m = algo.train_step(*state, generator)

@@ -357,7 +357,7 @@ def test_train_entry_point_cpu(tmp_path):
 
 def test_train_entry_point_refuses():
     with pytest.raises(SystemExit, match="not yet ported"):
-        ttrain.main(["--algo", "maddpg", "--device", "cpu"])
+        ttrain.main(["--algo", "rmaddpg", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             ttrain.main(["--iters", "1"])

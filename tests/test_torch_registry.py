@@ -1,8 +1,9 @@
 """The port's registry and entry points: ``eval_policy`` against the JAX
 package's on the same parameters in float64 (mappo with both heads, greedy
-and stochastic; rmappo with its carry over 4 steps across a reset),
-``make_algo``, the names not yet ported, and the ``train`` and ``eval``
-entry points on the CPU in a subprocess."""
+and stochastic; rmappo with its carry over 4 steps across a reset; the six
+feed-forward off-policy names), ``make_algo``, the names not yet ported,
+the ``train`` and ``eval`` entry points on the CPU in a subprocess, and
+eval's refusal to BFS-expand a per-agent checkpoint."""
 
 import os
 import subprocess
@@ -21,13 +22,14 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch import eval as teval
 from gym_formation_tpu_torch import train as ttrain
 from gym_formation_tpu_torch.algos import (
-    ALGO_NAMES, MAPPO, ONPOLICY, RMAPPO, MAPPOConfig, RMAPPOConfig, eval_policy, make_algo,
+    EPISODIC, MADDPG, MAPPO, MASAC, MATD3, OFFPOLICY, QMix, RMAPPO, MAPPOConfig, RMAPPOConfig, eval_policy,
+    make_algo,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
 TOL = dict(rtol=1e-10, atol=1e-10)
-NOT_PORTED = tuple(n for n in ALGO_NAMES if n not in ONPOLICY)
+NOT_PORTED = EPISODIC
 
 
 def _pair(name, discrete, B):
@@ -130,6 +132,67 @@ def test_make_algo():
         make_algo("ppo", env, 4, device="cpu")
 
 
+def test_make_algo_offpolicy():
+    """The six feed-forward off-policy names: ``ddpg`` implies local
+    critics, ``qmix``/``vdn`` their mixer, ``lr`` both of the MADDPG
+    family's rates; ``--set`` wins over what the name implies."""
+    env = gt.make_env("formation_hd_env", num_agents=3)
+    denv = gt.make_env("formation_hd_env", num_agents=3, discrete_action=True)
+    m = make_algo("maddpg", env, 8, lr=3e-3, device="cpu")
+    assert type(m) is MADDPG and m.cfg.centralized and (m.cfg.lr_actor, m.cfg.lr_critic) == (3e-3, 3e-3)
+    d = make_algo("ddpg", env, 8, sets=["use_per=True"], device="cpu")
+    assert type(d) is MADDPG and not d.cfg.centralized and d.cfg.use_per
+    assert make_algo("ddpg", env, 8, sets=["centralized=True"], device="cpu").cfg.centralized
+    t3 = make_algo("matd3", env, 8, sets=["policy_delay=3"], lr=2e-3, device="cpu")
+    assert type(t3) is MATD3 and (t3.cfg.policy_delay, t3.cfg.lr_actor, t3.cfg.lr_critic) == (3, 2e-3, 2e-3)
+    s = make_algo("masac", env, 8, lr=1e-3, device="cpu")
+    assert type(s) is MASAC and (s.cfg.lr, s.cfg.alpha_lr) == (1e-3, 3e-4)
+    for name in ("qmix", "vdn"):
+        q = make_algo(name, denv, 8, lr=1e-3, device="cpu")
+        assert type(q) is QMix and (q.cfg.mixer, q.cfg.lr, q.act_dim) == (name, 1e-3, 5)
+    assert {a.device.type for a in (m, d, t3, s)} == {"cpu"}
+
+
+def _jax_offpolicy_params(name, jalgo):
+    ts = jalgo.init(jax.random.PRNGKey(0))[0]
+    if name in ("qmix", "vdn"):
+        return {"q": ts.q_params, "mixer": ts.mixer_params}, {"q_params": ts.q_params}
+    return {"actor": ts.actor_params, "critic": ts.critic_params}, {"actor_params": ts.actor_params}
+
+
+@pytest.mark.parametrize("name,discrete", [("maddpg", False), ("maddpg", True), ("ddpg", False),
+                                           ("matd3", False), ("masac", False), ("masac", True),
+                                           ("qmix", True), ("vdn", True)])
+def test_eval_policy_offpolicy_matches_jax(name, discrete):
+    """JAX's eval branches and the port's on the same parameters (float64,
+    the actors' head gains up): the actors' actions clipped to ±high_action
+    (maddpg, ddpg, matd3), ``tanh(mean) · high_action`` (masac), one-hots
+    of the logits or of the shared Q (qmix, vdn)."""
+    B = 5
+    jenv = ft.make_env("formation_hd_env", num_agents=3, discrete_action=discrete)
+    jalgo = jreg.make_algo(name, jenv, num_envs=B, sets=["buffer_size=64", "high_action=0.5"]
+                           if name not in ("qmix", "vdn") else ["buffer_size=64"])
+    params, raw = _jax_offpolicy_params(name, jalgo)
+    params = jax.tree.map(lambda x: np.array(x, np.float64), params)
+    head = params["q" if name in ("qmix", "vdn") else "actor"]["params"]["Dense_0"]
+    head["kernel"] = head["kernel"] * 200.0
+    raw = {k: params[k.split("_")[0]] for k in raw}
+    jpol, jcarry = jreg.eval_policy(name, jalgo, raw, B)
+    talgo = make_algo(name, gt.make_env("formation_hd_env", num_agents=3, discrete_action=discrete), B,
+                      config=jalgo.cfg.__dict__, device="cpu")
+    talgo.dtype = F64
+    tpol, tcarry = eval_policy(name, talgo, talgo.state_from_flax(params), B)
+    assert jcarry is None and tcarry is None
+    obs = _obs(B, 3)
+    a_j, _ = jpol(jnp.asarray(obs), None)
+    a_t, _ = tpol(torch.as_tensor(obs), None)
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), **TOL)
+    if talgo.discrete:
+        assert set(a_t.unique().tolist()) == {0.0, 1.0} and torch.equal(a_t.sum(-1), torch.ones(B, 3, dtype=F64))
+    else:
+        assert float(a_t.abs().max()) <= 0.5
+
+
 @pytest.mark.parametrize("name", NOT_PORTED)
 def test_names_not_yet_ported_raise(name):
     env = gt.make_env("formation_hd_env", num_agents=3)
@@ -148,7 +211,7 @@ def test_eval_refusals():
                         (["--policy", "ckpt", "--discrete-action", "--num-layer", "2"], "can't be BFS-expanded"),
                         (["--stochastic"], "--stochastic applies"),
                         (["--policy", "ckpt", "--algo", "rmappo", "--num-layer", "2"], "shared stateless actor"),
-                        (["--policy", "ckpt", "--algo", "qmix"], "not yet ported")):
+                        (["--policy", "ckpt", "--algo", "rqmix"], "not yet ported")):
         with pytest.raises(SystemExit, match=match):
             teval.main(argv + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="is supported by"):
@@ -160,17 +223,26 @@ def _run(module, args):
     return subprocess.run(cmd, cwd=REPO, check=True, timeout=300, capture_output=True, text=True).stdout
 
 
+ONPOLICY_SETS = ["--set", "rollout_len=4", "--set", "ppo_epochs=1"]
+OFFPOLICY_SETS = ["--set", "buffer_size=256", "--set", "batch_size=16", "--set", "steps_per_iter=4",
+                  "--set", "updates_per_iter=2"]
+
+
 @pytest.mark.parametrize("algo,extra,eval_extra", [
-    ("rmappo", ["--set", "data_chunk_length=2"], []),
-    ("mappo", ["--discrete-action"], ["--discrete-action"]),
-    ("mappo", ["--set", "share_policy=False"], []),
+    ("rmappo", ONPOLICY_SETS + ["--set", "data_chunk_length=2"], []),
+    ("mappo", ONPOLICY_SETS + ["--discrete-action"], ["--discrete-action"]),
+    ("mappo", ONPOLICY_SETS + ["--set", "share_policy=False"], []),
+    ("maddpg", OFFPOLICY_SETS + ["--set", "use_per=True"], []),
+    ("matd3", OFFPOLICY_SETS, []),
+    ("masac", OFFPOLICY_SETS + ["--set", "warmup_random_steps=32"], []),
+    ("qmix", OFFPOLICY_SETS, []),
 ])
 def test_train_and_eval_entry_points_cpu(algo, extra, eval_extra, tmp_path):
     """Two iterations with a checkpoint each, a restored third, then eval
     of the checkpoint: finite returns for 2 episodes."""
     run = tmp_path / "run"
     base = ["--algo", algo, "--num-envs", "8", "--episode-length", "6", "--log-every", "1", "--save-every", "1",
-            "--run-dir", str(run), "--set", "rollout_len=4", "--set", "ppo_epochs=1", *extra]
+            "--run-dir", str(run), *extra]
     _run("train", base + ["--iters", "2"])
     out = _run("train", base + ["--iters", "1", "--restore"])
     assert "restored checkpoint at iteration 2" in out
@@ -180,3 +252,17 @@ def test_train_and_eval_entry_points_cpu(algo, extra, eval_extra, tmp_path):
     returns = [float(line.split("return=")[1].split()[0]) for line in out.splitlines() if "return=" in line]
     assert len(returns) == 2 and np.isfinite(returns).all()
     assert "collisions" in out and "mean return over 2 episodes" in out
+
+
+def test_eval_refuses_bfs_expansion_of_per_agent_checkpoint(tmp_path):
+    """One iteration of MAPPO with per-agent networks, then ``eval
+    --num-layer 2`` on its checkpoint: the refusal, not an einsum error
+    (the stacked actor holds 3 agents' weights, the expansion feeds 9
+    rows)."""
+    run = tmp_path / "run"
+    ttrain.main(["--algo", "mappo", "--num-envs", "4", "--iters", "1", "--episode-length", "4", "--save-every", "1",
+                 "--run-dir", str(run), "--set", "rollout_len=4", "--set", "ppo_epochs=1",
+                 "--set", "share_policy=False", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="per-agent stacked actors have no meta-agent assignment"):
+        teval.main(["--policy", "ckpt", "--algo", "mappo", "--ckpt", str(run / "ckpt"), "--num-layer", "2",
+                    "--device", "cpu"])
