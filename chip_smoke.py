@@ -134,6 +134,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 29. eval: python -m gym_formation_tpu_torch.eval --policy ckpt of phase 25's
    MADDPG and phase 28's QMIX learners, 2 episodes each on the card, finite
    returns.
+30-34. The recurrent off-policy zoo at N=3: make_algo(name,
+   make_env("formation_hd_env", num_agents=3, episode_length=25), 32 envs)
+   for rmaddpg, rmatd3, rmasac, rqmix and rvdn with their configs'
+   defaults (the reference's recurrent zoo protocol: 4096 episodes
+   buffered, batches of 32 episodes, 8 collections of 32 fresh episodes and
+   4 updates an iteration, GRU 64, critic (64, 64, 64)).  One warm-up and 3
+   timed train_step calls, each closed by a host fetch of the metrics: K1
+   and K2 once an env step (600 launches), K3-K9 never.  Training
+   env-steps/s (6,400 env steps an iteration), the collect / update split
+   (CUDA events), the peak device memory beside the episode buffer's bytes;
+   two _update_once calls on the card against the CPU from the same
+   networks, episodes (made with numpy) and draws; mean_step_reward over 12
+   iterations from a fresh learner finite and above RECURRENT_FLOOR.
+35. eval: python -m gym_formation_tpu_torch.eval --policy ckpt of phase 30's
+   RMADDPG and phase 33's RQMIX learners, 2 episodes each on the card with
+   the recurrent carry threaded, finite returns.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
@@ -1401,6 +1417,148 @@ def phase_offpolicy(dev, kmods, kind, full=True):
     return out
 
 
+# -- the recurrent off-policy zoo at N=3 ------------------------------------------
+RECURRENT = ("rmaddpg", "rmatd3", "rmasac", "rqmix", "rvdn")
+ZOO_EP_LEN = 25  # the reference's recurrent zoo protocol (RESULTS.md:322-336)
+# The JAX package's own first 12 iterations at this protocol on the CPU (two
+# seeds, tools/offpolicy_early_rewards.py --impl jax): RMADDPG and RMATD3
+# stay within -4.24 .. -4.58, RMASAC -4.67 .. -5.08, while ε anneals RVDN
+# falls to -7.43 and RQMIX to -10.77.  The floor is twice that lowest.
+RECURRENT_FLOOR = -21.5
+
+
+def recurrent_algo(name, dev):
+    """The learner of a recurrent path at N=3 with B=32 envs, episodes of 25
+    steps and its config's defaults."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import make_algo
+
+    env = gt.make_env("formation_hd_env", num_agents=3, episode_length=ZOO_EP_LEN,
+                      discrete_action=name in ("rqmix", "rvdn"))
+    return make_algo(name, env, ZOO_ENVS, device=dev)
+
+
+def recurrent_split(algo, state, g):
+    """One iteration as train_step runs it, with CUDA events between the
+    collections and the updates.  Returns the ms of each."""
+    ts, buf = state
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.no_grad():
+        for _ in range(algo.cfg.episodes_per_iter):
+            algo._collect(ts, buf, g)
+    ev[1].record()
+    ms = [algo._train_once(ts, buf, g) for _ in range(algo.cfg.updates_per_iter)]
+    ev[2].record()
+    torch.cuda.synchronize()
+    require(all(np.isfinite(float(v)) for m in ms for v in m.values()), "split iteration: non-finite metrics")
+    return dict(collect=ev[0].elapsed_time(ev[1]), update=ev[1].elapsed_time(ev[2]))
+
+
+def recurrent_card_vs_cpu(name, dev):
+    """Two updates on the card and on the CPU from the same networks, on
+    batches of 32 episodes of 26 observations made with numpy and the same
+    draws: every parameter, target and temperature within rtol 5e-3, atol
+    5e-5, the losses within 1e-3 relative, as the feed-forward zoo's."""
+    import copy
+
+    cpu, card = recurrent_algo(name, torch.device("cpu")), recurrent_algo(name, dev)
+    g = torch.Generator()
+    g.manual_seed(5)
+    nets = cpu._networks(g)
+    ts_cpu, ts_card = cpu.init_state(**copy.deepcopy(nets)), card.init_state(**copy.deepcopy(nets))
+    M, T, N, da = cpu.cfg.batch_episodes, cpu.T, cpu.n_agents, cpu.act_dim
+    rng = np.random.RandomState(8)
+    to_dev = lambda x: {k: v.to(dev) for k, v in x.items()}
+    for k in range(2):
+        action = np.eye(da)[rng.randint(0, da, (M, T, N))] if cpu.discrete else rng.uniform(-1, 1, (M, T, N, da))
+        batch = {"obs": rng.uniform(-1.5, 1.5, (M, T + 1, N, cpu.obs_dim)), "action": action,
+                 "reward": rng.normal(size=(M, T, N)) - 3.0}
+        batch = {k2: torch.as_tensor(v, dtype=torch.float32) for k2, v in batch.items()}
+        draws = cpu._update_draws(g, M)
+        m_cpu = cpu._update_once(ts_cpu, batch, draws)
+        m_card = card._update_once(ts_card, to_dev(batch), to_dev(draws))
+        for (pname, x), (_, y) in zip(_trained(ts_card), _trained(ts_cpu)):
+            check_close(x.detach().cpu(), y.detach(), 5e-5, 5e-3, f"{name} card vs CPU update {k}: {pname}")
+        for key in m_cpu:
+            a, b = float(m_card[key]), float(m_cpu[key])
+            require(abs(a - b) <= 1e-3 * abs(b) + 1e-6, f"{name} card vs CPU update {k}: {key} {a} vs {b}")
+    print(f"{name} N=3 two _update_once calls of {M} episodes x {T} steps (the same networks, episodes and draws): "
+          f"card and CPU agree (params rtol 5e-3 atol 5e-5, losses 1e-3)")
+
+
+def phase_recurrent(dev, kmods, name, full=True):
+    """A recurrent off-policy path at N=3 through train_step on the card: one
+    warm-up iteration and 3 timed ones, each closed by a host fetch of the
+    metrics and a finiteness check; K1 and K2 once an env step, K3-K9 never.
+    Training env-steps/s, the collect / update split, the peak device memory
+    beside the episode buffer's bytes.  With ``full``, also the card against
+    the CPU on two updates and 12 iterations from a fresh learner above
+    RECURRENT_FLOOR.  Returns the rate, split, launches, memory and the
+    learner."""
+    label = f"{name} N=3 B={ZOO_ENVS} T={ZOO_EP_LEN}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    algo = recurrent_algo(name, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = list(algo.init(g))
+    state, _, _ = onpolicy_iterations(algo, state, g, 1, f"{label} warm-up")
+    reset_counts(*kmods)
+    state, host, walls = onpolicy_iterations(algo, state, g, TIMED_ITERS, label)
+    counts = launch_counts(kmods)
+    peak = (torch.cuda.max_memory_allocated() - held) / 2 ** 20
+    cfg = algo.cfg
+    steps = cfg.episodes_per_iter * ZOO_ENVS * algo.T
+    print(f"{label}: launches in {TIMED_ITERS} iterations {counts}")
+    for kname in ("pairforce_sym", "reward_sym"):
+        require(counts[kname] == cfg.episodes_per_iter * algo.T * TIMED_ITERS, f"{label}: {kname} not once an env step")
+    for kname in ("fused_step", "fused_rollout", "fused_collect", "fused_ppo_grad", "pairforce", "reward",
+                  "pairforce_cull"):
+        require(counts[kname] == 0, f"{label}: {kname} launched")
+    rate = steps / statistics.median(walls)
+    print(f"training env-steps/s {label}: {rate:.1f} ({steps} env steps an iteration; iteration walls "
+          f"{', '.join(f'{w * 1e3:.3f}' for w in walls)} ms; {cfg.updates_per_iter} updates of "
+          f"{cfg.batch_episodes} episodes an iteration)")
+    split = recurrent_split(algo, state, g)
+    buf = state[1]
+    buffer_mib = sum(getattr(buf, k).numel() * getattr(buf, k).element_size() for k in buf._tensors) / 2 ** 20
+    print(f"{label} iteration: {fmt_split(split)}; peak device memory {peak:.1f} MiB above the "
+          f"{held / 2 ** 20:.1f} MiB held before the path (the episode buffer {buffer_mib:.1f} MiB)")
+    if algo.discrete:
+        a = buf.action[:buf.size]
+        require(bool(((a == 0) | (a == 1)).all()) and bool((a.sum(-1) == 1).all()),
+                f"{label}: stored actions are not one-hots")
+        print(f"{label}: the {a.shape[0] * a.shape[1] * a.shape[2]} stored actions are one-hots; "
+              f"epsilon {host['epsilon']:.4f}")
+    if name == "rmasac":
+        alpha = torch.exp(state[0].log_alpha.detach()).cpu()
+        require(bool((alpha != cfg.init_alpha).all()), f"{label}: alpha did not move: {alpha}")
+        print(f"{label}: alpha {cfg.init_alpha} -> {alpha.tolist()}")
+    out = dict(rate=rate, split=split, counts=counts, peak_mib=peak, buffer_mib=buffer_mib,
+               learner=(algo, state, g))
+    if not full:
+        return out
+
+    recurrent_card_vs_cpu(name, dev)
+    learn = recurrent_algo(name, dev)
+    gl = torch.Generator(device=dev)
+    gl.manual_seed(1)
+    lstate = list(learn.init(gl))
+    rewards = []
+    t0 = time.perf_counter()
+    for _ in range(12):
+        *lstate, m = learn.train_step(*lstate, gl)
+        rewards.append(float(m["mean_step_reward"]))
+    require(all(np.isfinite(rewards)) and min(rewards) > RECURRENT_FLOOR,
+            f"{label}: mean_step_reward left the band: {rewards}")
+    print(f"{label} 12 iterations ({time.perf_counter() - t0:.2f} s): mean_step_reward {rewards[0]:.4f} -> "
+          f"{rewards[-1]:.4f} (lowest {min(rewards):.4f}, floor {RECURRENT_FLOOR})")
+    return out
+
+
 def phase_k1k2_n3(dev, rng):
     """K1 and K2 against their plain versions at the N=3 paths' shape (the
     hd env's colliding subset: 3 agents of size 0.03), B=32 (the off-policy
@@ -1898,6 +2056,20 @@ def main() -> int:
     phase("eval of a MADDPG and a QMIX checkpoint")
     phase_eval(zoo["maddpg"]["learner"], "maddpg", ())
     phase_eval(zoo["qmix"]["learner"], "qmix", ())
+
+    # -- 30-34. the recurrent off-policy zoo at N=3 ------------------------------
+    recurrent = {}
+    for name in RECURRENT:
+        phase(f"{name} N=3 path")
+        recurrent[name] = phase_recurrent(dev, kmods, name)
+        if name not in ("rmaddpg", "rqmix"):
+            del recurrent[name]["learner"]  # its buffer leaves the card
+
+    # -- 35. eval of recurrent checkpoints ---------------------------------------
+    phase("eval of an RMADDPG and an RQMIX checkpoint")
+    episode = ("--episode-length", str(ZOO_EP_LEN))
+    phase_eval(recurrent["rmaddpg"]["learner"], "rmaddpg", episode)
+    phase_eval(recurrent["rqmix"]["learner"], "rqmix", episode)
 
     # bounds from this run's shapes (see bound())
     B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]

@@ -14,6 +14,9 @@ This module also holds what the feed-forward off-policy learners share
 buffer from its ``maddpg.py``):
 
 - :class:`ReplayBuffer`, a ring of transitions on the learner's device;
+- :class:`ReplayLearner`, what every off-policy learner shares, the
+  recurrent ones of ``rmaddpg.py`` too: networks from a seed, targets,
+  the state in and out of a checkpoint, the joint critic input;
 - :class:`OffPolicy`, the training tuple ``(ts, buffer, env_state, obs)``
   and its iteration: ``steps_per_iter`` vectorised env steps into the
   buffer, then ``updates_per_iter`` sampled updates once the buffer holds a
@@ -89,7 +92,8 @@ class ReplayBuffer:
     [cap].  A batch of B transitions goes in at the pointer, wrapping at the
     end.  ``ptr`` and ``size`` are Python ints."""
 
-    _tensors: Tuple[str, ...] = ("obs", "action", "reward", "next_obs", "done")
+    _rows: Tuple[str, ...] = ("obs", "action", "reward", "next_obs", "done")  # what a row holds
+    _tensors: Tuple[str, ...] = _rows  # what a checkpoint holds
 
     def __init__(self, cap: int, n_agents: int, obs_dim: int, act_dim: int, device=None,
                  dtype: torch.dtype = torch.float32):
@@ -110,18 +114,19 @@ class ReplayBuffer:
         if first < b:
             buf[:b - first] = x[first:]
 
-    def insert(self, obs, action, reward, next_obs, done) -> None:
-        """A [B, ...] batch of transitions at the pointer (B ≤ cap)."""
-        b = obs.shape[0]
+    def insert(self, *rows: torch.Tensor) -> None:
+        """A [B, ...] batch of rows at the pointer (B ≤ cap), one tensor for
+        each name of ``_rows`` in its order."""
+        b = rows[0].shape[0]
         if b > self.cap:
-            raise ValueError(f"a batch of {b} transitions exceeds the buffer's {self.cap}")
-        for name, x in zip(ReplayBuffer._tensors, (obs, action, reward, next_obs, done)):
+            raise ValueError(f"a batch of {b} rows exceeds the buffer's {self.cap}")
+        for name, x in zip(self._rows, rows, strict=True):
             self._ring_write(getattr(self, name), x)
         self.ptr = (self.ptr + b) % self.cap
         self.size = min(self.size + b, self.cap)
 
     def gather(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return {name: getattr(self, name)[idx] for name in ReplayBuffer._tensors}
+        return {name: getattr(self, name)[idx] for name in self._rows}
 
     def sample(self, generator: torch.Generator, batch_size: int) -> Dict[str, torch.Tensor]:
         """``batch_size`` transitions drawn uniformly, with replacement."""
@@ -183,14 +188,16 @@ def _load_state(ts, tree: Dict, device) -> None:
             setattr(ts, f.name, saved)
 
 
-class OffPolicy:
-    """The chassis of the feed-forward off-policy learners over a batch of
-    ``num_envs`` :class:`FormationEnv` envs on ``device`` (the card unless
-    ``device="cpu"`` is given), with parameters in ``dtype``.  A learner
-    defines its networks (``_networks``, ``init_state``), its exploration
-    (``explore_actions``), one update from the buffer (``_train_once``) and
-    the names of its loss metrics (``loss_keys``).  Its state is mutable:
-    ``train_step`` updates it in place and returns it."""
+class ReplayLearner:
+    """What the off-policy chassis share (:class:`OffPolicy`, step-wise, and
+    ``rmaddpg.Episodic``, whole episodes): a batch of ``num_envs``
+    :class:`FormationEnv` envs on ``device`` (the card unless
+    ``device="cpu"`` is given), parameters in ``dtype``, networks drawn from
+    a seed of the caller's generator, target copies, and the training state
+    in and out of a checkpoint.  A learner defines its networks
+    (``_networks``, ``init_state``) and the names of its loss metrics
+    (``loss_keys``).  Its state is mutable: ``train_step`` updates it in
+    place and returns it."""
 
     loss_keys: Tuple[str, ...] = ()
 
@@ -213,9 +220,6 @@ class OffPolicy:
     def init_state(self, **networks):
         raise NotImplementedError
 
-    def _buffer(self) -> ReplayBuffer:
-        return ReplayBuffer(self.cfg.buffer_size, self.n_agents, self.obs_dim, self.act_dim, self.device, self.dtype)
-
     def _to(self, module: torch.nn.Module) -> torch.nn.Module:
         return module.to(device=self.device, dtype=self.dtype)
 
@@ -224,14 +228,57 @@ class OffPolicy:
         target = self._to(given) if given is not None else copy.deepcopy(online)
         return target.requires_grad_(False)
 
-    def init(self, generator: torch.Generator):
-        """Random networks (their init drawn from a CPU generator seeded from
-        ``generator``), the training state, an empty buffer and the first
-        episodes.  Returns ``(ts, buffer, env_state, obs)``."""
+    def _init_state(self, generator: torch.Generator):
+        """A training state around random networks, their init drawn from a
+        CPU generator seeded from ``generator``."""
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator, device=generator.device))
         g = torch.Generator()
         g.manual_seed(seed)
-        ts = self.init_state(**self._networks(g))
+        return self.init_state(**self._networks(g))
+
+    def state_from_tree(self, tree: Dict):
+        """The training state of a checkpoint tree (``tree['state']``), on
+        the learner's device."""
+        ts = self.init_state(**self._networks())
+        _load_state(ts, tree["state"], self.device)
+        return ts
+
+    def _metrics(self, ms, rewards, bench) -> Dict:
+        """An iteration's metrics: each of ``loss_keys`` averaged over the
+        updates' ``ms`` (0 where none ran), ``mean_step_reward`` over the
+        reward means ``rewards``, and the benchmark means ``bench``."""
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() if ms else zero for k in self.loss_keys}
+        metrics["mean_step_reward"] = torch.stack(rewards).mean()
+        metrics.update({k: torch.stack([b[k] for b in bench]).mean() for k in (bench[0] if bench else {})})
+        return metrics
+
+    def _joint(self, x: torch.Tensor) -> torch.Tensor:
+        """[M, N, d] → each agent's critic input [M, N, N·d]: every agent's
+        row is the joint one."""
+        M = x.shape[0]
+        return x.reshape(M, 1, -1).expand(M, self.n_agents, -1)
+
+    def _substitute(self, action: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
+        """Agent i's row of the joint action [M, N, N·da]: the batch's
+        ``action`` with agent i's own replaced by ``own[:, i]``."""
+        M, N = action.shape[:2]
+        eye = torch.eye(N, dtype=torch.bool, device=action.device)[:, :, None]
+        return torch.where(eye, own[:, None], action[:, None]).reshape(M, N, -1)
+
+
+class OffPolicy(ReplayLearner):
+    """The chassis of the feed-forward off-policy learners: a learner adds
+    its exploration (``explore_actions``) and one update from the buffer
+    (``_train_once``) to :class:`ReplayLearner`'s."""
+
+    def _buffer(self) -> ReplayBuffer:
+        return ReplayBuffer(self.cfg.buffer_size, self.n_agents, self.obs_dim, self.act_dim, self.device, self.dtype)
+
+    def init(self, generator: torch.Generator):
+        """Random networks, the training state, an empty buffer and the first
+        episodes.  Returns ``(ts, buffer, env_state, obs)``."""
+        ts = self._init_state(generator)
         env_state, obs = self.env.reset(generator, self.num_envs)
         return ts, self._buffer(), env_state, obs
 
@@ -271,10 +318,7 @@ class OffPolicy:
         ms = []
         if buffer.size >= self.cfg.batch_size:
             ms = [self._train_once(ts, buffer, generator) for _ in range(self.cfg.updates_per_iter)]
-        zero = torch.zeros((), dtype=self.dtype, device=self.device)
-        metrics = {k: torch.stack([m[k] for m in ms]).mean() if ms else zero for k in self.loss_keys}
-        metrics["mean_step_reward"] = torch.stack(rewards).mean()
-        metrics.update({k: torch.stack([b[k] for b in bench]).mean() for k in (bench[0] if bench else {})})
+        metrics = self._metrics(ms, rewards, bench)
         metrics.update(self._iteration_metrics(ts, buffer))
         return ts, buffer, env_state, obs, metrics
 
@@ -292,13 +336,6 @@ class OffPolicy:
             "generator": generator.get_state(),
         }
 
-    def state_from_tree(self, tree: Dict):
-        """The training state of a :meth:`checkpoint_tree`, on the learner's
-        device."""
-        ts = self.init_state(**self._networks())
-        _load_state(ts, tree["state"], self.device)
-        return ts
-
     def restore_tree(self, tree: Dict, generator: torch.Generator):
         """Inverse of :meth:`checkpoint_tree` into fresh objects: returns
         ``(ts, buffer, env_state, obs)`` and sets the generator's state."""
@@ -310,20 +347,6 @@ class OffPolicy:
         env_state = EnvState(**{k: v.to(self.device) for k, v in tree["env_state"].items()})
         generator.set_state(tree["generator"])
         return ts, buffer, env_state, tree["obs"].to(self.device)
-
-    # -- shared helpers -----------------------------------------------------
-    def _joint(self, x: torch.Tensor) -> torch.Tensor:
-        """[M, N, d] → each agent's critic input [M, N, N·d]: every agent's
-        row is the joint one."""
-        M = x.shape[0]
-        return x.reshape(M, 1, -1).expand(M, self.n_agents, -1)
-
-    def _substitute(self, action: torch.Tensor, own: torch.Tensor) -> torch.Tensor:
-        """Agent i's row of the joint action [M, N, N·da]: the batch's
-        ``action`` with agent i's own replaced by ``own[:, i]``."""
-        M, N = action.shape[:2]
-        eye = torch.eye(N, dtype=torch.bool, device=action.device)[:, :, None]
-        return torch.where(eye, own[:, None], action[:, None]).reshape(M, N, -1)
 
 
 @dataclasses.dataclass

@@ -63,28 +63,28 @@ class QMixState:
     grad_updates: int
 
 
-class QMix(OffPolicy):
-    """QMIX and VDN (``cfg.mixer``)."""
+class Mixing:
+    """What QMix and the recurrent RQMix share: the learner's checks and
+    optimizer, its state around a Q network and a mixer, the ε schedule and
+    the mixing.  A learner names its Q network's converter
+    (``q_from_flax``)."""
 
     N_ACTIONS = 5
     loss_keys = ("q_loss", "q_tot")
+    q_from_flax = None
 
-    def __init__(self, env: FormationEnv, cfg: QMixConfig = QMixConfig(), num_envs: int = 32,
-                 device="cuda", dtype: torch.dtype = torch.float32):
+    def __init__(self, env: FormationEnv, cfg, num_envs: int, device, dtype: torch.dtype):
         if not env.discrete_action:
-            raise ValueError("QMix requires a discrete_action env")
+            raise ValueError(f"{type(self).__name__} requires a discrete_action env")
         if cfg.mixer not in MIXERS:
             raise ValueError(f"unknown mixer {cfg.mixer!r}; choose from {MIXERS}")
         super().__init__(env, cfg, num_envs, device, dtype)
         self.act_dim = self.N_ACTIONS
         self.tx = ClipAdam(cfg.lr, 10.0)
 
-    # -- setup --------------------------------------------------------------
-    def _networks(self, generator: Optional[torch.Generator] = None) -> Dict[str, Optional[torch.nn.Module]]:
-        cfg, N, do = self.cfg, self.n_agents, self.obs_dim
-        q = LogitsActor(do + N, self.N_ACTIONS, cfg.hidden, generator)
-        mixer = QMixer(N, N * do, cfg.mixer_embed, generator) if cfg.mixer == "qmix" else None
-        return {"q": q, "mixer": mixer}
+    def _mixer(self, generator: Optional[torch.Generator]) -> Optional[QMixer]:
+        N, cfg = self.n_agents, self.cfg
+        return QMixer(N, N * self.obs_dim, cfg.mixer_embed, generator) if cfg.mixer == "qmix" else None
 
     @staticmethod
     def _params(q: torch.nn.Module, mixer: Optional[QMixer]) -> List[torch.nn.Parameter]:
@@ -104,19 +104,16 @@ class QMix(OffPolicy):
     def state_from_flax(self, params: Dict) -> QMixState:
         """A fresh training state holding the JAX package's trees ``{'q',
         'mixer'[, 'target_q', 'target_mixer']}`` (``mixer`` empty for VDN)."""
-        q_fn = lambda t: logits_actor_from_flax(t, self.dtype)
+        q_fn = lambda t: self.q_from_flax(t, self.dtype)
         mix_fn = lambda t: qmixer_from_flax(t, self.dtype) if t else None
         opt = lambda k, fn: fn(params[k]) if k in params else None
         return self.init_state(q_fn(params["q"]), mix_fn(params["mixer"]), opt("target_q", q_fn),
                                opt("target_mixer", mix_fn))
 
-    # -- acting -------------------------------------------------------------
-    def _q_all(self, q: torch.nn.Module, obs: torch.Tensor) -> torch.Tensor:
-        """obs [..., N, do] → Q [..., N, A] by the shared network on
-        ``obs ⊕ one-hot agent id``."""
+    def _with_ids(self, obs: torch.Tensor) -> torch.Tensor:
+        """``obs`` [..., N, do] ⊕ the one-hot agent id."""
         N = self.n_agents
-        ids = torch.eye(N, dtype=obs.dtype, device=obs.device).expand(obs.shape[:-1] + (N,))
-        return q(torch.cat([obs, ids], -1))
+        return torch.cat([obs, torch.eye(N, dtype=obs.dtype, device=obs.device).expand(obs.shape[:-1] + (N,))], -1)
 
     def epsilon(self, ts: QMixState) -> float:
         """Linear from ``eps_start`` to ``eps_finish`` over
@@ -124,6 +121,30 @@ class QMix(OffPolicy):
         cfg = self.cfg
         frac = min(max(ts.env_steps / cfg.eps_anneal_steps, 0.0), 1.0)
         return cfg.eps_start + (cfg.eps_finish - cfg.eps_start) * frac
+
+    def _mix(self, mixer: Optional[QMixer], q_chosen: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+        return mixer(q_chosen, state) if mixer is not None else q_chosen.sum(-1)
+
+
+class QMix(Mixing, OffPolicy):
+    """QMIX and VDN (``cfg.mixer``)."""
+
+    q_from_flax = staticmethod(logits_actor_from_flax)
+
+    def __init__(self, env: FormationEnv, cfg: QMixConfig = QMixConfig(), num_envs: int = 32,
+                 device="cuda", dtype: torch.dtype = torch.float32):
+        super().__init__(env, cfg, num_envs, device, dtype)
+
+    # -- setup --------------------------------------------------------------
+    def _networks(self, generator: Optional[torch.Generator] = None) -> Dict[str, Optional[torch.nn.Module]]:
+        q = LogitsActor(self.obs_dim + self.n_agents, self.N_ACTIONS, self.cfg.hidden, generator)
+        return {"q": q, "mixer": self._mixer(generator)}
+
+    # -- acting -------------------------------------------------------------
+    def _q_all(self, q: torch.nn.Module, obs: torch.Tensor) -> torch.Tensor:
+        """obs [..., N, do] → Q [..., N, A] by the shared network on
+        ``obs ⊕ one-hot agent id``."""
+        return q(self._with_ids(obs))
 
     def _explore(self, ts: QMixState, obs: torch.Tensor, draws: Dict[str, torch.Tensor]) -> torch.Tensor:
         """ε-greedy over Q on the draws ``uniform`` [B, N] (against ε) and
@@ -148,9 +169,6 @@ class QMix(OffPolicy):
         return {"epsilon": self.epsilon(ts)}
 
     # -- the update ---------------------------------------------------------
-    def _mix(self, mixer: Optional[QMixer], q_chosen: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
-        return mixer(q_chosen, state) if mixer is not None else q_chosen.sum(-1)
-
     def _loss(self, ts: QMixState, batch: Dict[str, torch.Tensor]):
         """The mean squared TD error of ``Q_tot``; the target (double Q,
         agent 0's reward) carries no gradient."""

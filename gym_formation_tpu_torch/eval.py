@@ -4,6 +4,7 @@ benchmark quartet.
 
     python -m gym_formation_tpu_torch.eval --policy ckpt --algo rmappo --ckpt runs/<run>/ckpt
     python -m gym_formation_tpu_torch.eval --policy ckpt --algo qmix --ckpt runs/<run>/ckpt
+    python -m gym_formation_tpu_torch.eval --policy ckpt --algo rmaddpg --ckpt runs/<run>/ckpt --episode-length 25
     python -m gym_formation_tpu_torch.eval --policy ckpt --ckpt runs/<run>/ckpt --num-layer 2
     python -m gym_formation_tpu_torch.eval --policy ezpolicy --num-agents 3 --num-layer 2
     python -m gym_formation_tpu_torch.eval --device cpu --episodes 1
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 import gym_formation_tpu_torch as gt
-from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, EPISODIC, eval_policy, make_algo
+from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, eval_policy, make_algo
 from gym_formation_tpu_torch.utils import restore_checkpoint
 
 
@@ -75,8 +76,6 @@ def main(argv=None) -> None:
                          "BFS expansion feeds deterministic meta-velocities")
     if args.num_layer > 1 and args.policy == "ckpt" and args.algo != "mappo":
         raise SystemExit(NO_BFS_CKPT)
-    if args.policy == "ckpt" and args.algo in EPISODIC:
-        raise SystemExit(f"--algo {args.algo} is not yet ported: the port has no recurrent off-policy learner")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: evaluate on the CPU with --device cpu")

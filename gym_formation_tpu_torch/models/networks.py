@@ -9,14 +9,20 @@ the categorical head, the centralized value critic, their per-agent stacked
 forms (``share_policy=False``), the GRU actor and critic, and the per-agent
 (stacked) networks of the off-policy zoo, which the JAX package builds with
 ``vmap(init)``: the deterministic actor, the Q critic and its twin, the
-tanh-Gaussian actor; QMix's agent network is :class:`LogitsActor` over
-``obs ⊕ one-hot id``, and its mixer :class:`QMixer`.  Parameter names map
-onto flax's paths (``MLP_0/Dense_k``, ``Dense_0`` for the head,
-``log_std``, ``GRUCell_0``, ``CentralizedQCritic_k`` for a twin head), so
-that the ``*_from_flax`` functions and :func:`to_flax` carry weights across
-the two packages.  flax stores a Dense
-kernel as ``[in, out]``; ``nn.Linear.weight`` is ``[out, in]``, and a
-stacked layer's ``kernel`` is flax's ``[N, in, out]`` as it is.
+tanh-Gaussian actor, and the recurrent zoo's GRU actors (RMADDPG's
+:class:`StackedGRUPolicy`, RMASAC's :class:`StackedRecurrentSquashedActor`,
+both on :class:`StackedGRUCell`); QMix's agent network is
+:class:`LogitsActor` over ``obs ⊕ one-hot id``, RQMix's is
+:class:`GRUPolicy` with its logits head, and their mixer :class:`QMixer`.
+Parameter names map onto flax's paths (``MLP_0/Dense_k``, ``Dense_0`` for
+the head, ``log_std``, ``GRUCell_0``, ``Dense_2`` for the recurrent SAC
+actor's log-std head, ``CentralizedQCritic_k`` for a twin head), so that
+the ``*_from_flax`` functions and :func:`to_flax` carry weights across the
+two packages.  flax stores a Dense kernel as ``[in, out]``;
+``nn.Linear.weight`` is ``[out, in]``, and a stacked layer's ``kernel`` is
+flax's ``[N, in, out]`` as it is.  A GRU weight holds its three gates along
+one axis (axis 1 behind a stacked cell's agent axis), flax one kernel a
+gate.
 """
 
 from __future__ import annotations
@@ -330,6 +336,85 @@ class GRUCell(nn.Module):
         return (1.0 - z) * n + z * h
 
 
+def _reset_carry(carry: torch.Tensor, reset: Optional[torch.Tensor]) -> torch.Tensor:
+    """The carry zeroed where ``reset`` [...] is set (``carry`` [..., H])."""
+    return carry if reset is None else torch.where(reset[..., None], 0.0, carry)
+
+
+class StackedGRUCell(nn.Module):
+    """:class:`GRUCell` with one set of weights an agent: ``weight_ih`` [N,
+    3H, in], ``weight_hh`` [N, 3H, H], ``bias_ih`` [N, 3H], ``bias_hn`` [N,
+    H], the gates in (r, z, n) order; one ``einsum`` a gate matrix over
+    ``h`` [..., N, H] and ``x`` [..., N, in].  Each agent's slice is
+    initialised as :class:`GRUCell` is."""
+
+    def __init__(self, n: int, in_dim: int, hidden: int, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cells = [GRUCell(in_dim, hidden, generator) for _ in range(n)]
+        for name in ("weight_ih", "weight_hh", "bias_ih", "bias_hn"):
+            self.register_parameter(name, nn.Parameter(torch.stack([getattr(c, name).detach() for c in cells])))
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        gi = torch.einsum("...ni,ngi->...ng", x, self.weight_ih) + self.bias_ih
+        gh = torch.einsum("...nh,ngh->...ng", h, self.weight_hh)
+        ir, iz, in_ = gi.chunk(3, -1)
+        hr, hz, hn = gh.chunk(3, -1)
+        r = torch.sigmoid(ir + hr)
+        z = torch.sigmoid(iz + hz)
+        n = torch.tanh(in_ + r * (hn + self.bias_hn))
+        return (1.0 - z) * n + z * h
+
+
+class _StackedGRUTrunk(nn.Module):
+    """``Dense → relu`` embedding, the carry zeroed where ``reset`` is set,
+    the GRU cell, and the ``out`` head (flax's ``Dense_0``, ``GRUCell_0``,
+    ``Dense_1``), one set of weights an agent."""
+
+    def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: int, generator: Optional[torch.Generator]):
+        super().__init__()
+        self.hidden = hidden
+        self.embed = StackedDense(n, obs_dim, hidden, math.sqrt(2.0), generator)
+        self.gru = StackedGRUCell(n, hidden, hidden, generator)
+        self.out = StackedDense(n, hidden, act_dim, 0.01, generator)
+
+    def _cell(self, carry: torch.Tensor, obs: torch.Tensor, reset: Optional[torch.Tensor]) -> torch.Tensor:
+        return self.gru(_reset_carry(carry, reset), torch.relu(self.embed(obs)))
+
+
+class StackedGRUPolicy(_StackedGRUTrunk):
+    """Per-agent recurrent actors (RMADDPG's, the JAX package's ``GRUPolicy``
+    initialised by ``vmap`` over the agents): ``obs [..., N, do]``, the
+    carry [..., N, H] and ``reset`` [..., N] (or None) → ``(carry, (mean,
+    log_std))`` [..., N, da].  The log-std is soft-bounded to (−5, 2), kept
+    so that the tree round-trips (RMADDPG takes only the mean)."""
+
+    def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(n, obs_dim, act_dim, hidden, generator)
+        self.log_std = nn.Parameter(torch.zeros(n, act_dim))
+
+    def forward(self, carry: torch.Tensor, obs: torch.Tensor, reset: Optional[torch.Tensor] = None):
+        carry = self._cell(carry, obs, reset)
+        mean = self.out(carry)
+        return carry, (mean, soft_bound(self.log_std, -5.0, 2.0).expand_as(mean))
+
+
+class StackedRecurrentSquashedActor(_StackedGRUTrunk):
+    """Per-agent recurrent SAC actors (the JAX package's
+    ``RecurrentSquashedActor`` stacked over the agents): the mean head and
+    the log-std head (flax's ``Dense_1`` and ``Dense_2``) on the GRU, the
+    log-std clipped to [LOG_STD_MIN, LOG_STD_MAX]."""
+
+    def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(n, obs_dim, act_dim, hidden, generator)
+        self.log_std_out = StackedDense(n, hidden, act_dim, 0.01, generator)
+
+    def forward(self, carry: torch.Tensor, obs: torch.Tensor, reset: Optional[torch.Tensor] = None):
+        carry = self._cell(carry, obs, reset)
+        return carry, (self.out(carry), torch.clamp(self.log_std_out(carry), LOG_STD_MIN, LOG_STD_MAX))
+
+
 class GRUPolicy(nn.Module):
     """Recurrent actor: ``Dense → relu`` embedding, the carry zeroed where
     ``reset`` is set (before the cell), the GRU cell, then a Gaussian head
@@ -346,11 +431,11 @@ class GRUPolicy(nn.Module):
         if not discrete:
             self.log_std = nn.Parameter(torch.zeros(act_dim))
 
-    def forward(self, carry: torch.Tensor, obs: torch.Tensor, reset: torch.Tensor):
-        """One step: carry [..., H], obs [..., do], reset [...] bool.
-        Returns ``(new carry, dist)``."""
+    def forward(self, carry: torch.Tensor, obs: torch.Tensor, reset: Optional[torch.Tensor] = None):
+        """One step: carry [..., H], obs [..., do], reset [...] bool (None:
+        no env starts an episode).  Returns ``(new carry, dist)``."""
         x = torch.relu(self.embed(obs))
-        carry = self.gru(torch.where(reset[..., None], 0.0, carry), x)
+        carry = self.gru(_reset_carry(carry, reset), x)
         out = self.out(carry)
         if self.discrete:
             return carry, out
@@ -430,7 +515,7 @@ def gaussian_sample(generator: torch.Generator, mean: torch.Tensor, log_std: tor
 
 # the flax module of each top-level submodule name
 _FLAX_MODULE = {"mlp": "MLP_0", "head": "Dense_0", "embed": "Dense_0", "out": "Dense_1",
-                "gru": "GRUCell_0", "log_std_head": "Dense_1",
+                "gru": "GRUCell_0", "log_std_head": "Dense_1", "log_std_out": "Dense_2",
                 "hyper_w1": "Dense_0", "hyper_b1": "Dense_1", "hyper_w2": "Dense_2",
                 "hyper_b2": "Dense_3", "hyper_b2_hidden": "Dense_4"}
 # submodules that hold a whole flax module of their own (a twin critic's heads)
@@ -456,10 +541,12 @@ def _flax_leaves(name: str, a: np.ndarray):
         leaf = parts[1]
         if leaf == "bias_hn":
             return [((top, "hn", "bias"), a)]
-        H = a.shape[0] // 3
         kind = "bias" if leaf == "bias_ih" else "kernel"
-        return [((top, g, kind), a[k * H:(k + 1) * H].T if kind == "kernel" else a[k * H:(k + 1) * H])
-                for k, g in enumerate(_GATES[leaf])]
+        # the gate axis: 0, or 1 behind a stacked cell's agent axis
+        axis = a.ndim - (1 if kind == "bias" else 2)
+        gates = np.split(a, 3, axis)
+        return [((top, g, kind), np.swapaxes(x, -1, -2) if kind == "kernel" else x)
+                for x, g in zip(gates, _GATES[leaf])]
     mod = (top, f"Dense_{parts[2]}") if parts[0] == "mlp" else (top,)
     leaf = parts[-1]
     if leaf == "weight":  # nn.Linear [out, in] → flax [in, out]
@@ -484,7 +571,9 @@ def _from_flax_leaf(name: str, p: Dict) -> np.ndarray:
             return get((top, "hn", "bias"))
         kind = "bias" if leaf == "bias_ih" else "kernel"
         xs = [get((top, g, kind)) for g in _GATES[leaf]]
-        return np.concatenate([x.T if kind == "kernel" else x for x in xs], 0)
+        if kind == "kernel":
+            xs = [np.swapaxes(x, -1, -2) for x in xs]
+        return np.concatenate(xs, xs[0].ndim - (1 if kind == "bias" else 2))
     mod = (top, f"Dense_{parts[2]}") if parts[0] == "mlp" else (top,)
     leaf = parts[-1]
     if leaf == "weight":
@@ -576,6 +665,24 @@ def gru_policy_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=
     obs_dim, hidden = _kernel(p, "Dense_0").shape
     act_dim = _kernel(p, "Dense_1").shape[1]
     return _load_flax(GRUPolicy(obs_dim, act_dim, hidden, discrete="log_std" not in p), tree, dtype, device)
+
+
+def stacked_gru_policy_from_flax(tree: Dict, dtype: torch.dtype = torch.float32,
+                                 device=None) -> StackedGRUPolicy:
+    """A :class:`StackedGRUPolicy` holding RMADDPG's per-agent ``GRUPolicy``
+    tree (leaves [N, ...])."""
+    n, obs_dim, hidden = _kernel(tree["params"], "Dense_0").shape
+    act_dim = _kernel(tree["params"], "Dense_1").shape[-1]
+    return _load_flax(StackedGRUPolicy(n, obs_dim, act_dim, hidden), tree, dtype, device)
+
+
+def recurrent_squashed_actor_from_flax(tree: Dict, dtype: torch.dtype = torch.float32,
+                                       device=None) -> StackedRecurrentSquashedActor:
+    """A :class:`StackedRecurrentSquashedActor` holding RMASAC's per-agent
+    ``RecurrentSquashedActor`` tree."""
+    n, obs_dim, hidden = _kernel(tree["params"], "Dense_0").shape
+    act_dim = _kernel(tree["params"], "Dense_1").shape[-1]
+    return _load_flax(StackedRecurrentSquashedActor(n, obs_dim, act_dim, hidden), tree, dtype, device)
 
 
 def gru_critic_from_flax(tree: Dict, dtype: torch.dtype = torch.float32, device=None) -> GRUCritic:

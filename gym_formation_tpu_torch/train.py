@@ -7,17 +7,17 @@
     python -m gym_formation_tpu_torch.train --algo masac --num-envs 32 --iters 1000
     python -m gym_formation_tpu_torch.train --algo maddpg --set use_per=True --set ou_noise=True
     python -m gym_formation_tpu_torch.train --algo qmix
+    python -m gym_formation_tpu_torch.train --algo rmaddpg --num-envs 32 --episode-length 25 --iters 320
     python -m gym_formation_tpu_torch.train --device cpu --num-envs 8 --iters 2
     python -m gym_formation_tpu_torch.train --restore --run-dir runs/my_run
 
-The arguments are the JAX package's ``train.py`` ones for ``mappo``,
-``rmappo``, ``maddpg``, ``ddpg``, ``matd3``, ``masac``, ``qmix`` and ``vdn``
-(the recurrent off-policy algorithms are not yet ported), plus ``--device``
-(default ``cuda``; without a CUDA device the run stops unless ``--device
-cpu`` is given).  Every ``--log-every`` iterations one row of
-metrics goes to ``<run-dir>/metrics.jsonl``; every ``--save-every``
+The arguments are the JAX package's ``train.py`` ones for its 13 algorithms,
+plus ``--device`` (default ``cuda``; without a CUDA device the run stops
+unless ``--device cpu`` is given).  Every ``--log-every`` iterations one row
+of metrics goes to ``<run-dir>/metrics.jsonl``; every ``--save-every``
 iterations the whole training tuple goes to ``<run-dir>/ckpt/``, an
-off-policy learner's replay buffer included.
+off-policy learner's replay buffer included.  The run ends with the
+``mean_step_reward`` curve in ``<run-dir>/mean_step_reward.png``.
 """
 
 from __future__ import annotations
@@ -71,6 +71,12 @@ def switches(name: str, algo) -> str:
                   structured_obs=algo.structured_obs, fused_update=cfg.fused_update)
     elif name == "masac":
         on = dict(autotune_alpha=cfg.autotune_alpha, warmup_random_steps=cfg.warmup_random_steps)
+    elif name == "rmasac":
+        on = dict(autotune_alpha=cfg.autotune_alpha)
+    elif name in ("rmaddpg", "rmatd3"):
+        on = dict(twin=cfg.twin, mask_done=cfg.mask_done)
+    elif name in ("rqmix", "rvdn"):
+        on = dict(mixer=cfg.mixer, double_q=cfg.double_q)
     elif name in DISCRETE_ONLY:
         on = dict(mixer=cfg.mixer, double_q=cfg.double_q, hard_interval=cfg.hard_interval)
     else:
@@ -83,8 +89,6 @@ def main(argv=None) -> None:
     if args.discrete_action and args.algo not in DISCRETE_OK:
         raise SystemExit("--discrete-action is supported by maddpg/ddpg/matd3/masac (the gumbel-softmax "
                          "paths) and mappo/rmappo (categorical heads); qmix/vdn variants are discrete by default")
-    if args.algo in EPISODIC:
-        raise SystemExit(f"--algo {args.algo} is not yet ported: the port has no recurrent off-policy learner")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device: train on the CPU with --device cpu")
@@ -102,7 +106,7 @@ def main(argv=None) -> None:
     ckpt_dir = os.path.join(run_dir, "ckpt")
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed)
-    state = algo.init(generator)  # (ts, env_state, obs[, carry])
+    state = algo.init(generator)  # (ts, env_state, obs[, carry]), (ts, buffer, env_state, obs) or (ts, buffer)
     start = 0
     if args.restore:
         step = latest_step(ckpt_dir)
@@ -114,7 +118,12 @@ def main(argv=None) -> None:
 
     print(f"{args.algo} on {args.scenario} N={args.num_agents} B={args.num_envs} device={device} "
           f"discrete={algo.discrete}: {switches(args.algo, algo)}")
-    steps_per_iter = (cfg.rollout_len if args.algo in ONPOLICY else cfg.steps_per_iter) * args.num_envs
+    if args.algo in ONPOLICY:
+        steps_per_iter = cfg.rollout_len * args.num_envs
+    elif args.algo in EPISODIC:
+        steps_per_iter = cfg.episodes_per_iter * args.num_envs * env.world_length
+    else:
+        steps_per_iter = cfg.steps_per_iter * args.num_envs
     logger = MetricsLogger(run_dir)
     for i in range(start, start + args.iters):
         *state, m = algo.train_step(*state, generator)
@@ -124,6 +133,7 @@ def main(argv=None) -> None:
             print(f"iter {i}: {m}")
         if args.save_every and (i + 1 - start) % args.save_every == 0:
             save_checkpoint(ckpt_dir, i + 1, algo.checkpoint_tree(*state, generator), max_to_keep=2)
+    logger.plot("mean_step_reward")
     logger.close()
     print(f"done -> {run_dir}")
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``gym_formation_tpu/utils/config.py``: every learner config is
 a frozen dataclass; :func:`load_config` merges a YAML file (optional, needs
-PyYAML) and ``key=value`` strings onto its defaults, rejecting unknown keys.
+PyYAML) and ``key=value`` strings onto its defaults, rejecting unknown keys;
+:func:`save_config` writes one out as YAML, which :func:`load_config` reads
+back to an equal config.
 """
 
 from __future__ import annotations
@@ -11,6 +13,10 @@ import dataclasses
 from typing import Any, Dict, Mapping, Optional, Sequence, Type, TypeVar
 
 T = TypeVar("T")
+
+
+def to_dict(cfg: Any) -> Dict[str, Any]:
+    return dataclasses.asdict(cfg)
 
 
 def from_dict(cls: Type[T], d: Mapping[str, Any]) -> T:
@@ -51,3 +57,12 @@ def load_config(cls: Type[T], yaml_path: Optional[str] = None, overrides: Sequen
             raise ValueError(f"override must be key=value: {ov!r}")
         d[k.strip()] = _parse_scalar(v.strip())
     return from_dict(cls, d)
+
+
+def save_config(cfg: Any, yaml_path: str) -> None:
+    """``cfg`` as a YAML mapping of its fields (tuples as lists)."""
+    import yaml
+
+    d = {k: list(v) if isinstance(v, tuple) else v for k, v in to_dict(cfg).items()}
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(d, f, sort_keys=True)

@@ -1,5 +1,6 @@
 """Helpers of the off-policy parity tests (``test_torch_{maddpg,matd3,masac,
-qmix}.py``): float64 trees, numpy batches, the JAX draws of a key, and the
+qmix}.py`` and the recurrent ``test_torch_{rmaddpg,rmasac,rqmix}.py``):
+float64 trees, numpy batches and episodes, the JAX draws of a key, and the
 checks that every test file shares."""
 
 import functools
@@ -8,6 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+import pytest
 
 import gym_formation_tpu_torch as gt
 from gym_formation_tpu.core.types import EnvState as JEnvState
@@ -95,12 +98,16 @@ def assert_module(module, tree, rtol=1e-9, atol=1e-9):
 def assert_round_trip(jmodule, inputs, from_flax, stacked=True, **kw):
     """A flax init of ``jmodule`` (stacked over 3 agents by ``vmap``, as the
     JAX learners build it, unless ``stacked`` is False) through
-    ``from_flax`` and back by ``to_flax``: the same tree, leaf for leaf."""
+    ``from_flax`` and back by ``to_flax``: the same tree, leaf for leaf.
+    Leaves are float32 (under x64 a ``self.param`` of flax's constant init,
+    GRUPolicy's ``log_std``, comes out float64 beside the float32 Dense
+    parameters)."""
     def init(k):
         return jmodule.init(k, *inputs)
 
     key = jax.random.PRNGKey(11)
     tree = jax.jit(jax.vmap(init))(jax.random.split(key, 3)) if stacked else jax.jit(init)(key)
+    tree = jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
     back = to_flax(from_flax(np_tree(tree), **kw))
     g, w = leaves(back), leaves(tree)
     assert sorted(g) == sorted(w)
@@ -234,3 +241,102 @@ def assert_ddpg_state(ts, ts_j, rtol=1e-9, atol=1e-9):
     for mod, tree in ((ts.actor, ts_j.actor_params), (ts.critic, ts_j.critic_params),
                       (ts.target_actor, ts_j.target_actor_params), (ts.target_critic, ts_j.target_critic_params)):
         assert_module(mod, tree, rtol, atol)
+
+
+# -- the recurrent (episodic) learners -------------------------------------------
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The module's tests on one intra-op thread.  A learner's iteration is
+    thousands of small ops, and MKL's threads (``bmm``, ``tanh``) wait for
+    each other at every one: on a host whose cores other test workers
+    hold, a 30-iteration run took 751 s on the default threads against 6 s
+    on one.  Imported by the recurrent learners' test files."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+EP_T = 5  # episode length of the recurrent parity tests
+
+
+def episodes(seed, M, T, n, do, da, discrete):
+    """A numpy batch of M episodes of T steps (T+1 observations): one-hot
+    actions when ``discrete``."""
+    rng = np.random.RandomState(seed)
+    action = np.eye(da)[rng.randint(0, da, (M, T, n))] if discrete else rng.uniform(-1.0, 1.0, (M, T, n, da))
+    return {"obs": rng.uniform(-1.5, 1.5, (M, T + 1, n, do)), "action": action,
+            "reward": rng.normal(size=(M, T, n)) - 3.0}
+
+
+def jenv_f64(discrete=False, T=EP_T):
+    """The JAX package's formation_hd_env in float64 (so that its scanned
+    collection keeps one dtype in x64), episodes of T steps."""
+    import gym_formation_tpu as ft
+
+    return ft.make_env("formation_hd_env", num_agents=3, episode_length=T, dtype=jnp.float64,
+                       discrete_action=discrete)
+
+
+def step_keys(key, T):
+    """The per-step keys of a JAX scan over T steps: ``split(key, T)``."""
+    return jax.random.split(key, T)
+
+
+def per_step(keys, draw):
+    """``draw(k)`` for each step key, stacked on axis 1 ([B, T, ...])."""
+    return t(np.stack([np.asarray(draw(k)) for k in keys], 1))
+
+
+def replay_episodes(jalgo, ts_j, talgo, ts, key, draws_of):
+    """JAX's ``_collect_episodes(ts_j, key)`` against the port's from the
+    same reset states (JAX's, ``split(k_reset, B)``) on the draws
+    ``draws_of(k_roll)``: ``obs[:, :T]``, actions and rewards (1e-9); the
+    port's ``obs[:, T]`` is the true terminal observation, JAX's
+    ``info['terminal_obs']`` of the last step replayed through its
+    ``env.step`` from the port's last pre-step state (1e-9), which the
+    JAX package's stored ``obs[:, T]`` (the next episode's first) is not.
+    Returns the port's episodes."""
+    B, T = jalgo.num_envs, jalgo.T
+    obs_j, act_j, rew_j, _ = jax.jit(jalgo._collect_episodes)(ts_j, key)
+    k_reset, k_roll = jax.random.split(key)
+    es_j, obs0_j = jax.vmap(jalgo.env.reset)(jax.random.split(k_reset, B))
+    state = gt.state_from_numpy(es_j, dtype=F64)
+    obs0 = talgo.env.scenario.observe(state)
+    np.testing.assert_allclose(obs0.numpy(), np.asarray(obs0_j), rtol=1e-12, atol=1e-12)
+    pre, step = [], talgo.env.step
+
+    def recording_step(st, actions, generator):
+        pre.append((st, actions))
+        return step(st, actions, generator)
+
+    talgo.env.step = recording_step
+    try:
+        with torch.no_grad():
+            (obs, act, rew), rewards, _ = talgo._collect_episodes(ts, state, obs0, draws_of(k_roll), torch.Generator())
+    finally:
+        talgo.env.step = step
+    assert obs.shape == (B, T + 1, 3, talgo.obs_dim) and len(pre) == len(rewards) == T
+    tol = dict(rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(obs[:, :T].numpy(), np.asarray(obs_j[:, :T]), **tol)
+    np.testing.assert_allclose(act.numpy(), np.asarray(act_j), **tol)
+    np.testing.assert_allclose(rew.numpy(), np.asarray(rew_j), **tol)
+    st, actions = pre[-1]
+    _, out = jax.jit(jax.vmap(jalgo.env.step))(jstate(st), jnp.asarray(actions.numpy()))
+    assert bool(np.all(np.asarray(out.done)))  # every episode ends at step T
+    terminal = np.asarray(out.info["terminal_obs"])
+    np.testing.assert_allclose(obs[:, T].numpy(), terminal, **tol)
+    assert not np.allclose(np.asarray(obs_j[:, T]), terminal, atol=1e-3)
+    return obs, act, rew
+
+
+def assert_ignores_terminal_obs(losses, batch_np, seed=0):
+    """``losses(batch)`` → a list of tensors (losses and gradients): the same
+    bits when every episode's last observation is replaced."""
+    other = dict(batch_np, obs=batch_np["obs"].copy())
+    other["obs"][:, -1] = np.random.RandomState(seed).uniform(-5.0, 5.0, other["obs"][:, -1].shape)
+    a, b = losses({k: t(v) for k, v in batch_np.items()}), losses({k: t(v) for k, v in other.items()})
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)

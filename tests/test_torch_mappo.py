@@ -355,9 +355,9 @@ def test_train_entry_point_cpu(tmp_path):
     assert sorted(os.listdir(run / "ckpt")) == ["2.pt", "3.pt"]
 
 
-def test_train_entry_point_refuses():
-    with pytest.raises(SystemExit, match="not yet ported"):
-        ttrain.main(["--algo", "rmaddpg", "--device", "cpu"])
+def test_train_entry_point_refuses(tmp_path):
+    with pytest.raises(SystemExit, match="--restore: no checkpoint"):
+        ttrain.main(["--algo", "rmaddpg", "--device", "cpu", "--restore", "--run-dir", str(tmp_path / "none")])
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="--device cpu"):
             ttrain.main(["--iters", "1"])

@@ -1,9 +1,10 @@
 """The port's registry and entry points: ``eval_policy`` against the JAX
 package's on the same parameters in float64 (mappo with both heads, greedy
 and stochastic; rmappo with its carry over 4 steps across a reset; the six
-feed-forward off-policy names), ``make_algo``, the names not yet ported,
-the ``train`` and ``eval`` entry points on the CPU in a subprocess, and
-eval's refusal to BFS-expand a per-agent checkpoint."""
+feed-forward off-policy names; the five recurrent off-policy names with
+their carries), ``make_algo``, the ``train`` and ``eval`` entry points on
+the CPU in a subprocess, and eval's refusal to BFS-expand a per-agent
+checkpoint."""
 
 import os
 import subprocess
@@ -22,14 +23,13 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch import eval as teval
 from gym_formation_tpu_torch import train as ttrain
 from gym_formation_tpu_torch.algos import (
-    EPISODIC, MADDPG, MAPPO, MASAC, MATD3, OFFPOLICY, QMix, RMAPPO, MAPPOConfig, RMAPPOConfig, eval_policy,
-    make_algo,
+    EPISODIC, MADDPG, MAPPO, MASAC, MATD3, RMADDPG, RMASAC, QMix, RMAPPO, RQMix, MAPPOConfig, RMAPPOConfig,
+    eval_policy, make_algo,
 )
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F64 = torch.float64
 TOL = dict(rtol=1e-10, atol=1e-10)
-NOT_PORTED = EPISODIC
 
 
 def _pair(name, discrete, B):
@@ -193,15 +193,67 @@ def test_eval_policy_offpolicy_matches_jax(name, discrete):
         assert float(a_t.abs().max()) <= 0.5
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_names_not_yet_ported_raise(name):
-    env = gt.make_env("formation_hd_env", num_agents=3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_algo(name, env, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        eval_policy(name, None, None, 1)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        ttrain.main(["--algo", name, "--device", "cpu"])
+def test_make_algo_recurrent():
+    """The five recurrent off-policy names: ``rmatd3`` implies the twin
+    critics, ``rqmix``/``rvdn`` their mixer, ``lr`` both rates of
+    RMADDPG/RMATD3 and the one ``lr`` of the others; ``--set`` wins."""
+    env = gt.make_env("formation_hd_env", num_agents=3, episode_length=25)
+    denv = gt.make_env("formation_hd_env", num_agents=3, episode_length=25, discrete_action=True)
+    r = make_algo("rmaddpg", env, 32, lr=3e-3, device="cpu")
+    assert type(r) is RMADDPG and not r.cfg.twin and (r.cfg.lr_actor, r.cfg.lr_critic) == (3e-3, 3e-3)
+    t3 = make_algo("rmatd3", env, 32, sets=["mask_done=False"], device="cpu")
+    assert type(t3) is RMADDPG and t3.cfg.twin and not t3.cfg.mask_done
+    assert not make_algo("rmatd3", env, 32, sets=["twin=False"], device="cpu").cfg.twin
+    s = make_algo("rmasac", env, 32, lr=1e-3, sets=["autotune_alpha=False"], device="cpu")
+    assert type(s) is RMASAC and (s.cfg.lr, s.cfg.alpha_lr, s.cfg.autotune_alpha) == (1e-3, 3e-4, False)
+    for name in ("rqmix", "rvdn"):
+        q = make_algo(name, denv, 32, lr=1e-3, device="cpu")
+        assert type(q) is RQMix and (q.cfg.mixer, q.cfg.lr, q.act_dim) == (name[1:], 1e-3, 5)
+    assert (r.T, r.num_envs, r.cfg.buffer_episodes, r.cfg.gru_hidden) == (25, 32, 4096, 64)
+    assert set(EPISODIC) == {"rmaddpg", "rmatd3", "rmasac", "rqmix", "rvdn"}
+
+
+@pytest.mark.parametrize("name", EPISODIC)
+def test_eval_policy_recurrent_matches_jax(name):
+    """JAX's recurrent eval branches and the port's on the same parameters
+    (float64, the heads' gains up) over 3 steps from a stale carry, the
+    hidden states zeroed by the first step's reset flags and again for the
+    envs flagged before step 2: ``tanh(mean) · high_action`` (rmaddpg,
+    rmatd3, rmasac; unclipped, in range), the greedy one-hots of the shared
+    Q (rqmix, rvdn), and the carries (1e-10)."""
+    B, discrete = 4, name in ("rqmix", "rvdn")
+    jenv = ft.make_env("formation_hd_env", num_agents=3, episode_length=8, discrete_action=discrete)
+    sets = ["buffer_episodes=8", "gru_hidden=16"] + ([] if discrete else ["high_action=0.5"])
+    jalgo = jreg.make_algo(name, jenv, num_envs=B, sets=sets)
+    ts = jax.jit(lambda k: jalgo.init(k)[0])(jax.random.PRNGKey(0))
+    key = "q" if discrete else "actor"
+    tree = np_f64(getattr(ts, f"{key}_params"))
+    tree["params"]["Dense_1"]["kernel"] = tree["params"]["Dense_1"]["kernel"] * 300.0
+    jpol, (hj, rj) = jreg.eval_policy(name, jalgo, {f"{key}_params": tree}, B)
+    talgo = make_algo(name, gt.make_env("formation_hd_env", num_agents=3, episode_length=8, discrete_action=discrete),
+                      B, config=jalgo.cfg.__dict__, device="cpu")
+    talgo.dtype = F64
+    params = {"q": tree, "mixer": {}} if discrete else {"actor": tree, "critic": np_f64(ts.critic_params)}
+    tpol, (ht, rt) = eval_policy(name, talgo, talgo.state_from_flax(params), B)
+    assert ht.shape == (B, 3, 16) and bool(rt.all())
+    hj, ht = hj + 0.3, ht + 0.3  # a stale carry that the first step's resets must clear
+    for step in range(3):
+        if step == 2:
+            rj, rt = jnp.asarray([True, False, True, False]), torch.tensor([True, False, True, False])
+        obs = _obs(B, 20 + step)
+        a_j, (hj, rj) = jpol(jnp.asarray(obs), (hj, rj))
+        a_t, (ht, rt) = tpol(torch.as_tensor(obs), (ht, rt))
+        np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), **TOL)
+        np.testing.assert_allclose(ht.numpy(), np.asarray(hj), **TOL)
+        assert not bool(rt.any())
+    if discrete:
+        assert set(a_t.unique().tolist()) == {0.0, 1.0} and torch.equal(a_t.sum(-1), torch.ones(B, 3, dtype=F64))
+    else:
+        assert 0.4 < float(a_t.abs().max()) <= 0.5
+
+
+def np_f64(tree):
+    return jax.tree.map(lambda x: np.array(x, np.float64), tree)
 
 
 def test_eval_refusals():
@@ -211,7 +263,7 @@ def test_eval_refusals():
                         (["--policy", "ckpt", "--discrete-action", "--num-layer", "2"], "can't be BFS-expanded"),
                         (["--stochastic"], "--stochastic applies"),
                         (["--policy", "ckpt", "--algo", "rmappo", "--num-layer", "2"], "shared stateless actor"),
-                        (["--policy", "ckpt", "--algo", "rqmix"], "not yet ported")):
+                        (["--policy", "ckpt", "--algo", "rqmix"], "--ckpt is required")):
         with pytest.raises(SystemExit, match=match):
             teval.main(argv + ["--device", "cpu"])
     with pytest.raises(SystemExit, match="is supported by"):
@@ -219,13 +271,18 @@ def test_eval_refusals():
 
 
 def _run(module, args):
+    """The entry point in a process of its own, on one intra-op thread
+    (other test workers hold the host's cores)."""
     cmd = [sys.executable, "-m", f"gym_formation_tpu_torch.{module}", "--device", "cpu", *args]
-    return subprocess.run(cmd, cwd=REPO, check=True, timeout=300, capture_output=True, text=True).stdout
+    return subprocess.run(cmd, cwd=REPO, check=True, timeout=300, capture_output=True, text=True,
+                          env={**os.environ, "OMP_NUM_THREADS": "1"}).stdout
 
 
 ONPOLICY_SETS = ["--set", "rollout_len=4", "--set", "ppo_epochs=1"]
 OFFPOLICY_SETS = ["--set", "buffer_size=256", "--set", "batch_size=16", "--set", "steps_per_iter=4",
                   "--set", "updates_per_iter=2"]
+EPISODIC_SETS = ["--episode-length", "4", "--set", "buffer_episodes=64", "--set", "batch_episodes=8",
+                 "--set", "episodes_per_iter=1", "--set", "updates_per_iter=2", "--set", "gru_hidden=16"]
 
 
 @pytest.mark.parametrize("algo,extra,eval_extra", [
@@ -236,10 +293,14 @@ OFFPOLICY_SETS = ["--set", "buffer_size=256", "--set", "batch_size=16", "--set",
     ("matd3", OFFPOLICY_SETS, []),
     ("masac", OFFPOLICY_SETS + ["--set", "warmup_random_steps=32"], []),
     ("qmix", OFFPOLICY_SETS, []),
+    ("rmaddpg", EPISODIC_SETS, ["--episode-length", "4"]),
+    ("rmasac", EPISODIC_SETS, ["--episode-length", "4"]),
+    ("rqmix", EPISODIC_SETS, ["--episode-length", "4"]),
 ])
 def test_train_and_eval_entry_points_cpu(algo, extra, eval_extra, tmp_path):
     """Two iterations with a checkpoint each, a restored third, then eval
-    of the checkpoint: finite returns for 2 episodes."""
+    of the checkpoint: finite returns for 2 episodes.  Each run ends with
+    its reward curve, ``mean_step_reward.png``."""
     run = tmp_path / "run"
     base = ["--algo", algo, "--num-envs", "8", "--episode-length", "6", "--log-every", "1", "--save-every", "1",
             "--run-dir", str(run), *extra]
@@ -247,6 +308,7 @@ def test_train_and_eval_entry_points_cpu(algo, extra, eval_extra, tmp_path):
     out = _run("train", base + ["--iters", "1", "--restore"])
     assert "restored checkpoint at iteration 2" in out
     assert sorted(os.listdir(run / "ckpt")) == ["2.pt", "3.pt"]
+    assert (run / "mean_step_reward.png").stat().st_size > 0
     out = _run("eval", ["--policy", "ckpt", "--algo", algo, "--ckpt", str(run / "ckpt"), "--episodes", "2",
                         "--episode-length", "6", *eval_extra])
     returns = [float(line.split("return=")[1].split()[0]) for line in out.splitlines() if "return=" in line]
