@@ -173,6 +173,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    one NaN; Throughput reports a positive rate; the traced window's wall
    against untraced ones.
 
+40. Data parallel (gym_formation_tpu_torch.parallel): K5 at env_offset
+   2048 over B=2048 (rank 1 of 2 at B=4096) against its plain version, and
+   against rows [2048, 4096) of one launch over the whole batch; then a
+   world of 2 processes on the one card (backend gloo, chosen explicitly:
+   NCCL refuses two ranks on one device), each path against this process's
+   unsharded run from the same seed: the sharded fused rollout (N=243,
+   B=4096, 128 steps, bfs_ez; the gathered rewards and final state bit for
+   bit; K3 128 and the masked K2 129 launches a rank), MAPPO N=3 fused
+   (B=4096, 3 iterations; K5 once an iteration and K9 once an epoch a rank;
+   parameters within rtol 5e-3 atol 5e-5, the first optimizer step's
+   reduced gradient within rtol 5e-3 and 1e-4 of its largest entry), MAPPO
+   N=243 structured (B=1024, 2 iterations; K1 and K2 once an env step a
+   rank; the first step's gradient so held; Adam's sign-like steps spread
+   weights with near-zero gradients by up to 2·lr a step, so the
+   parameters are reported and held only within that) and MADDPG N=3
+   (B=32, 2 iterations; both ranks' parameters bit for bit); then a
+   world of 1 (nccl) running MAPPO N=3 fused for 2 iterations against the
+   unsharded run.  Prints the training env-steps/s of W=2 and W=1 and the
+   collectives' ms an iteration (CUDA events) beside the card's name and
+   power limit.
+
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
 
@@ -1858,6 +1879,340 @@ def phase_profiling(dev, kmods):
     return dict(overhead=traced / base, traced_ms=traced * 1e3, plain_ms=base * 1e3, rate=rate, counts=counts)
 
 
+# -- 40. data parallel ------------------------------------------------------------
+DP_WORLD = 2  # ranks of the gloo world, all on the one card
+DP_ROLLOUT = (243, 4096, 128)  # N, global B, steps of the sharded fused rollout
+DP_MAPPO_N3 = (4096, 3)  # global B, iterations
+DP_MAPPO_N243 = (1024, 2)
+DP_MADDPG = (32, 2)
+DP_GATE = dict(rtol=5e-3, atol=5e-5)  # the learners' card-against-CPU gate of phases 12-13
+DP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_dp")
+
+
+def _dp_kmods():
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+    from gym_formation_tpu_torch.ops.kernels import fused_step as k3
+    from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
+    from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
+
+    return k1, k2, k3, k5, k9
+
+
+def _dp_sync(mesh):
+    torch.cuda.synchronize()
+    if mesh is not None:
+        torch.distributed.barrier()
+
+
+def _dp_train(algo, mesh, g, iters, label):
+    """``iters`` train_step calls from a fresh init (rank 0's networks on
+    every rank), each closed by a host fetch of the metrics; the kernels'
+    launches and the collectives counted over them.  Returns the
+    parameters after each iteration, the walls, the launches and the
+    all_reduce calls and ms."""
+    from gym_formation_tpu_torch import parallel
+    from gym_formation_tpu_torch.parallel import mesh as dp
+
+    kmods = _dp_kmods()
+    state = algo.init(g)
+    parallel.replicate_global(state[0], mesh)
+    first = []
+    if hasattr(algo, "_apply"):  # MAPPO: keep the first optimizer step's (reduced) gradient
+        apply = algo._apply
+
+        def keep_first(ts, grads):
+            if not first:
+                first.extend(g_.detach().cpu().clone() for g_ in grads)
+            apply(ts, grads)
+
+        algo._apply = keep_first
+    reset_counts(*kmods)
+    dp.reset_stats(timing=True)
+    params, walls = [], []
+    for _ in range(iters):
+        _dp_sync(mesh)
+        t0 = time.perf_counter()
+        *state, m = algo.train_step(*state, g)
+        host = {k: float(v) for k, v in m.items()}
+        _dp_sync(mesh)
+        walls.append(time.perf_counter() - t0)
+        require(all(np.isfinite(v) for v in host.values()), f"{label}: non-finite metrics {host}")
+        ts = state[0]
+        nets = ([p for p in ts.params()] if hasattr(ts, "params") else
+                [p for f in ("actor", "critic") for p in getattr(ts, f).parameters()])
+        params.append([p.detach().cpu().clone() for p in nets])
+    return dict(params=params, walls=walls, counts=launch_counts(kmods), all_reduce=dp.stats["all_reduce"],
+                all_gather=dp.stats["all_gather"], collective_ms=dp.collective_ms(), first_grad=first)
+
+
+def dp_programs(mesh, dev):
+    """The phase's four paths on this process: the whole batch without a
+    mesh, the rank's share under one."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch import parallel
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig, make_algo
+
+    out = {}
+    g = torch.Generator(device=dev)
+    # the sharded fused rollout (K3 and the masked K2), the N=243 bfs_state row
+    n, B, T = DP_ROLLOUT
+    env = gt.make_env("formation_hd_env", num_agents=n)
+    g.manual_seed(21)
+    state = env.reset_state(g, B)  # the global batch, on every rank
+    kmods = _dp_kmods()
+    _dp_sync(mesh)
+    reset_counts(*kmods)
+    t0 = time.perf_counter()
+    if mesh is None:
+        st, rew = gt.rollout_statepolicy_fused(env, None, state, g, T, policy="bfs_ez")
+    else:
+        st, rew = gt.rollout_statepolicy_fused_sharded(env, None, parallel.shard_batch(state, mesh), g, T, mesh,
+                                                       policy="bfs_ez")
+    _dp_sync(mesh)
+    wall = time.perf_counter() - t0
+    counts = launch_counts(kmods)
+    st = parallel.host_local_to_global(st, mesh)
+    rew = parallel.host_local_to_global(rew.T.contiguous(), mesh).T
+    out["rollout"] = dict(state={k: v.cpu() for k, v in st.__dict__.items()}, rewards=rew.cpu(), counts=counts,
+                          wall=wall)
+    del state, st, rew
+    # MAPPO N=3: K5 (with the rank's env offset) and K9 (global counts)
+    B, iters = DP_MAPPO_N3
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3, mesh=mesh), MAPPOConfig(fused_update=True),
+                 num_envs=B, device=dev)
+    require(algo.fused_collect, "data parallel: the auto gate did not turn fused_collect on")
+    g.manual_seed(0)
+    out["mappo_n3"] = _dp_train(algo, mesh, g, iters, "data parallel MAPPO N=3")
+    # MAPPO N=243 on the structured path (K1, K2)
+    B, iters = DP_MAPPO_N243
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=243, mesh=mesh), MAPPOConfig(), num_envs=B,
+                 device=dev)
+    require(algo.structured_obs, "data parallel: N=243 MAPPO did not take the structured path")
+    g.manual_seed(1)
+    out["mappo_n243"] = _dp_train(algo, mesh, g, iters, "data parallel MAPPO N=243")
+    del algo
+    # MADDPG N=3 (K1, K2): gathered transitions, replicated updates
+    B, iters = DP_MADDPG
+    algo = make_algo("maddpg", gt.make_env("formation_hd_env", num_agents=3), B, device=dev, mesh=mesh)
+    g.manual_seed(2)
+    out["maddpg"] = _dp_train(algo, mesh, g, iters, "data parallel MADDPG")
+    return out
+
+
+def dp_world_rank(mesh, out_dir):
+    """A rank of the phase's gloo world: the four paths on its share."""
+    from gym_formation_tpu_torch.parallel import mesh as dp
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.save(dp_programs(mesh, dev), os.path.join(out_dir, f"gloo_rank{dp.rank(mesh)}.pt"))
+
+
+def dp_nccl_rank(mesh, out_dir):
+    """The one rank of the phase's nccl world: MAPPO N=3 fused, 2 iterations."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3, mesh=mesh), MAPPOConfig(fused_update=True),
+                 num_envs=DP_MAPPO_N3[0], device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    torch.save(_dp_train(algo, mesh, g, 2, "nccl MAPPO N=3"), os.path.join(out_dir, "nccl_rank0.pt"))
+
+
+def _dp_rate(res, env_steps):
+    """env-steps/s over the iterations after the first."""
+    return env_steps / statistics.median(res["walls"][1:] or res["walls"])
+
+
+def _dp_close(got, want, what):
+    err = 0.0
+    for a, b in zip(got, want, strict=True):
+        err = max(err, check_close(a, b, DP_GATE["atol"], DP_GATE["rtol"], what))
+    return err
+
+
+def _dp_grad_close(got, want, what):
+    """The first optimizer step's gradient, summed over the ranks, against
+    the single process's: rtol 5e-3 and an atol of 1e-4 of the gradient's
+    largest entry (float32 sums over the batch's rows in another order).
+    Returns the largest error relative to that entry."""
+    scale = max(float(b.abs().max()) for b in want) or 1.0
+    for a, b in zip(got, want, strict=True):
+        check_close(a, b, 1e-4 * scale, DP_GATE["rtol"], what)
+    return max(max_err(a, b) for a, b in zip(got, want)) / scale
+
+
+def _dp_param_spread(got, want):
+    """(max abs error, share of entries outside the learners' gate) of two
+    parameter lists."""
+    err, over, total = 0.0, 0, 0
+    for a, b in zip(got, want, strict=True):
+        d = (a.double() - b.double()).abs()
+        err = max(err, float(d.max()))
+        over += int((d > DP_GATE["atol"] + DP_GATE["rtol"] * b.double().abs()).sum())
+        total += d.numel()
+    return err, over / total
+
+
+def phase_data_parallel(dev, card):
+    """K5 with an env offset against its plain version; the four paths in
+    a world of 2 processes (gloo) on the one card against this process's
+    unsharded runs; MAPPO N=3 in a world of 1 (nccl)."""
+    import shutil
+
+    from gym_formation_tpu_torch import parallel
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+    from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
+
+    t_phase = time.perf_counter()
+    # K5 at the offset of rank 1 (of 2) against its plain version, and
+    # against rows [offset, B) of one launch over the whole batch
+    n, B, T, ep_len, off = 3, NUM_ENVS, 25, 10, NUM_ENVS // 2
+    import gym_formation_tpu_torch as gt
+
+    v = gt.make_vec_env("formation_hd_env", num_envs=B, num_agents=n, device=dev, seed=5)
+    soa = k4.state_to_soa(v.reset_state())
+    rng = np.random.RandomState(40)
+    soa = soa._replace(t=torch.as_tensor(rng.randint(0, ep_len, (1, B)), dtype=torch.int32, device=dev))
+    actor, critic = random_networks(n, 7, dev)
+    aops, cops = k5.actor_planes(actor), k5.critic_planes(critic)
+    part = soa._replace(**{f: getattr(soa, f)[:, off:].contiguous() for f in soa._fields})
+    kw = dict(length=T, ep_len=ep_len, n=n)
+    s_k, tr_k = k5.fused_collect_hd(part, aops, cops, 9, env_offset=off, **kw)
+    s_p, tr_p = k5.fused_collect_hd_plain(part, aops, cops, 9, env_offset=off, **kw)
+    _, tr_whole = k5.fused_collect_hd(soa, aops, cops, 9, **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for f in ("ap", "av", "ishape", "ivel"):
+        err = max(err, check_close(getattr(s_k, f), getattr(s_p, f), 1e-5, 0.0, f"K5 offset {f}"))
+    for k in ("obs", "action", "logp", "value", "reward"):
+        err = max(err, check_close(tr_k[k], tr_p[k], 1e-4, 1e-5, f"K5 offset {k}"))
+    require(torch.equal(s_k.t, s_p.t) and torch.equal(tr_k["done"], tr_p["done"]), "K5 offset: counters differ")
+    require(bool(tr_k["done"].any(0).all()), "K5 offset: not every env reset")
+    same = all(torch.equal(tr_k[k], tr_whole[k][:, off:]) for k in tr_k)
+    print(f"K5 n=3 B={B - off} env_offset={off}: max abs err {err:.3e} against its plain version (state atol "
+          f"1e-5; trajectory atol 1e-4 rtol 1e-5); bit for bit with rows [{off}, {B}) of one launch over "
+          f"B={B}: {same}")
+
+    # the unsharded runs in this process
+    ref = dp_programs(None, dev)
+    torch.cuda.empty_cache()
+    # the gloo world of 2 ranks on the one card, and the nccl world of 1
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    t0 = time.perf_counter()
+    parallel.spawn(dp_world_rank, DP_WORLD, (DP_DIR,), backend="gloo", device_type="cuda")
+    gloo_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parallel.spawn(dp_nccl_rank, 1, (DP_DIR,), backend="nccl", device_type="cuda")
+    nccl_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(DP_DIR, f"gloo_rank{r}.pt"), weights_only=False) for r in range(DP_WORLD)]
+    nccl = torch.load(os.path.join(DP_DIR, "nccl_rank0.pt"), weights_only=False)
+    w2 = ranks[0]
+
+    # the sharded fused rollout: bit for bit (each env's arithmetic does not
+    # depend on the batch it is launched in)
+    n, B, T = DP_ROLLOUT
+    r1, r2 = ref["rollout"], w2["rollout"]
+    bitwise = torch.equal(r1["rewards"], r2["rewards"]) and all(
+        torch.equal(r1["state"][k], r2["state"][k]) for k in r1["state"])
+    if not bitwise:  # a finding: held to the K3 gate
+        check_close(r2["state"]["pos"], r1["state"]["pos"], 2e-4, 0.0, "sharded rollout pos")
+        check_close(r2["state"]["vel"], r1["state"]["vel"], 2e-3, 0.0, "sharded rollout vel")
+        check_close(r2["rewards"], r1["rewards"], 1e-5 * n * n, 1e-5, "sharded rollout rewards")
+    for r, rank in enumerate(ranks):
+        c = rank["rollout"]["counts"]
+        require(c["fused_step"] == T and c["reward_sym"] == T + 1 and c["pairforce_sym"] == 0,
+                f"sharded rollout rank {r}: launches {c}")
+    print(f"sharded fused rollout N={n} B={B} ({B // DP_WORLD} a rank) {T} steps bfs_ez: gathered rewards "
+          f"[{T}, {B}] and final state bit for bit with the unsharded run: {bitwise}; launches a rank "
+          f"{ranks[0]['rollout']['counts']['fused_step']} K3, {ranks[0]['rollout']['counts']['reward_sym']} "
+          f"masked K2; wall W=1 {r1['wall'] * 1e3:.3f} ms, W=2 {r2['wall'] * 1e3:.3f} ms ({card})")
+
+    # MAPPO N=3 fused: K5 once an iteration a rank (offsets 0 and B/2), K9
+    # once an epoch
+    B, iters = DP_MAPPO_N3
+    epochs = 10
+    err = _dp_close(w2["mappo_n3"]["params"][-1], ref["mappo_n3"]["params"][-1], "data parallel MAPPO N=3")
+    grel = _dp_grad_close(w2["mappo_n3"]["first_grad"], ref["mappo_n3"]["first_grad"],
+                          "data parallel MAPPO N=3 first gradient")
+    for r, rank in enumerate(ranks):
+        c = rank["mappo_n3"]["counts"]
+        require(c["fused_collect"] == iters and c["fused_ppo_grad"] == iters * epochs,
+                f"data parallel MAPPO N=3 rank {r}: launches {c}")
+        require(all(torch.equal(a, b) for a, b in zip(rank["mappo_n3"]["params"][-1], w2["mappo_n3"]["params"][-1])),
+                f"data parallel MAPPO N=3: rank {r}'s parameters differ from rank 0's")
+    steps = 25 * B
+    ar = w2["mappo_n3"]
+    print(f"data parallel MAPPO N=3 B={B} fused, {iters} iterations: parameters against the unsharded run max "
+          f"abs err {err:.3e} (rtol {DP_GATE['rtol']}, atol {DP_GATE['atol']}), the first step's gradient's "
+          f"{grel:.3e} of its largest entry; launches a rank "
+          f"{ar['counts']['fused_collect']} K5, {ar['counts']['fused_ppo_grad']} K9")
+    print(f"training env-steps/s MAPPO N=3 B={B} fused: W=1 {_dp_rate(ref['mappo_n3'], steps):.1f}, W=2 on one "
+          f"card (gloo) {_dp_rate(ar, steps):.1f}; all_reduce {ar['all_reduce'] / iters:.1f} calls and "
+          f"{ar['collective_ms'] / iters:.3f} ms an iteration (CUDA events, rank 0) ({card})")
+
+    # MAPPO N=243 structured: K1 and K2 once an env step a rank.  Adam's
+    # first steps move each weight by about lr · sign(g), so a weight whose
+    # gradient is near zero takes the float32 reordering of its gradient's
+    # sum as a different sign: the parameters are held through the first
+    # step's gradient, and their spread is reported
+    B, iters = DP_MAPPO_N243
+    grel = _dp_grad_close(w2["mappo_n243"]["first_grad"], ref["mappo_n243"]["first_grad"],
+                          "data parallel MAPPO N=243 first gradient")
+    err, over = _dp_param_spread(w2["mappo_n243"]["params"][-1], ref["mappo_n243"]["params"][-1])
+    require(err <= 2 * 7e-4 * 10 * iters, f"data parallel MAPPO N=243: parameters apart by {err:.3e}, more than "
+            f"sign flips of {10 * iters} Adam steps give")
+    for r, rank in enumerate(ranks):
+        c = rank["mappo_n243"]["counts"]
+        require(c["pairforce_sym"] == iters * 25 and c["reward_sym"] == iters * 25 and c["fused_collect"] == 0,
+                f"data parallel MAPPO N=243 rank {r}: launches {c}")
+        require(all(torch.equal(a, b) for a, b in zip(rank["mappo_n243"]["params"][-1],
+                                                     w2["mappo_n243"]["params"][-1])),
+                f"data parallel MAPPO N=243: rank {r}'s parameters differ from rank 0's")
+    ar = w2["mappo_n243"]
+    print(f"data parallel MAPPO N=243 structured B={B}, {iters} iterations: the first step's gradient within "
+          f"rtol 5e-3 (largest error {grel:.3e} of the gradient's largest entry); parameters max abs err {err:.3e}, "
+          f"{over:.3e} of them outside rtol 5e-3 atol 5e-5; "
+          f"launches a rank {ar['counts']['pairforce_sym']} K1, {ar['counts']['reward_sym']} K2; training "
+          f"env-steps/s W=1 {_dp_rate(ref['mappo_n243'], 25 * B):.1f}, W=2 {_dp_rate(ar, 25 * B):.1f}; "
+          f"all_reduce {ar['all_reduce'] / iters:.1f} calls and {ar['collective_ms'] / iters:.3f} ms an "
+          f"iteration ({card})")
+
+    # MADDPG N=3: every rank's parameters bit for bit, and the single process's
+    B, iters = DP_MADDPG
+    for r, rank in enumerate(ranks):
+        c = rank["maddpg"]["counts"]
+        require(c["pairforce_sym"] == iters * 32 and c["reward_sym"] == iters * 32,
+                f"data parallel MADDPG rank {r}: launches {c}")
+        require(all(torch.equal(a, b) for a, b in zip(rank["maddpg"]["params"][-1], w2["maddpg"]["params"][-1])),
+                f"data parallel MADDPG: rank {r}'s parameters differ from rank 0's")
+    same = all(torch.equal(a, b) for a, b in zip(w2["maddpg"]["params"][-1], ref["maddpg"]["params"][-1]))
+    if not same:  # a finding: held to the learners' gate
+        _dp_close(w2["maddpg"]["params"][-1], ref["maddpg"]["params"][-1], "data parallel MADDPG")
+    ar = w2["maddpg"]
+    print(f"data parallel MADDPG N=3 B={B}, {iters} iterations: both ranks' parameters bit for bit; equal to the "
+          f"unsharded run bit for bit: {same}; launches a rank {ar['counts']['pairforce_sym']} K1, "
+          f"{ar['counts']['reward_sym']} K2; all_gather {ar['all_gather'] / iters:.1f} calls and "
+          f"{ar['collective_ms'] / iters:.3f} ms an iteration; training env-steps/s W=1 "
+          f"{_dp_rate(ref['maddpg'], 32 * B):.1f}, W=2 {_dp_rate(ar, 32 * B):.1f} ({card})")
+
+    # the nccl world of 1: MAPPO N=3 fused, 2 iterations, against the
+    # unsharded run's second iteration
+    err = _dp_close(nccl["params"][-1], ref["mappo_n3"]["params"][1], "nccl MAPPO N=3")
+    require(nccl["counts"]["fused_collect"] == 2 and nccl["counts"]["fused_ppo_grad"] == 20,
+            f"nccl MAPPO N=3: launches {nccl['counts']}")
+    print(f"nccl world of 1: MAPPO N=3 B={DP_MAPPO_N3[0]} fused, 2 iterations: parameters max abs err {err:.3e} "
+          f"against the unsharded run; all_reduce {nccl['all_reduce'] / 2:.1f} calls and "
+          f"{nccl['collective_ms'] / 2:.3f} ms an iteration ({card})")
+    print(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s (gloo world {gloo_s:.1f} s, nccl world "
+          f"{nccl_s:.1f} s, each with its processes' start)")
+
+
 def main() -> int:
     # -- 1. environment --------------------------------------------------
     phase("environment")
@@ -2328,6 +2683,10 @@ def main() -> int:
     print(f"new paths' launches: wrapper {SURFACE_STEPS} steps K1 {surface['counts']['pairforce_sym']}, "
           f"K2 {surface['counts']['reward_sym']}; traced step path 8 steps K1 {prof['counts']['pairforce_sym']}, "
           f"K2 {prof['counts']['reward_sym']}")
+
+    # -- 40. data parallel ----------------------------------------------------------
+    phase("data parallel: K5 with an env offset, a gloo world of 2 and an nccl world of 1 on the one card")
+    phase_data_parallel(dev, smi.stdout.strip().splitlines()[0])
 
     # bounds from this run's shapes (see bound())
     B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]

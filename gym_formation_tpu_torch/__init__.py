@@ -22,7 +22,10 @@ list and dict wrappers (:class:`GymMultiAgentEnv`, :class:`DictAgentEnv`),
 :func:`get_action_BFS`, the original environment's resets
 (:mod:`.compat`), the renderer (:mod:`.render`), the keyboard policy
 (:mod:`.policy`), profiling (:mod:`.utils.profiling`) and ``python -m
-gym_formation_tpu_torch.demo``.
+gym_formation_tpu_torch.demo``; data parallelism over ``torch.distributed``
+(:mod:`.parallel`: ``train --mesh DP``, ``--multihost``,
+:func:`rollout_statepolicy_fused_sharded`, ``python -m
+gym_formation_tpu_torch.graft_entry``).
 
 Entry points that place tensors (:func:`make_vec_env`,
 :class:`VecFormationEnv`, the wrappers, :func:`get_action_BFS`,
@@ -40,6 +43,7 @@ from .env import (
     rollout_stateonly,
     rollout_statepolicy,
     rollout_statepolicy_fused,
+    rollout_statepolicy_fused_sharded,
     rollout_statepolicy_rewardsum,
 )
 from .envs import SCENARIOS, generate_shape, make_scenario, register
@@ -57,9 +61,11 @@ def make_env(
     discrete_action: bool = False,
     discrete_action_input: bool = False,
     force_discrete_action: bool = False,
+    mesh=None,
     **scenario_kwargs,
 ) -> FormationEnv:
-    """Build a batched env by scenario name (the JAX package's signature)."""
+    """Build a batched env by scenario name (the JAX package's signature;
+    ``mesh``: a data-parallel mesh, see :class:`FormationEnv`)."""
     scenario = make_scenario(scenario_name, num_agents=num_agents, **scenario_kwargs)
     return FormationEnv(
         scenario,
@@ -68,6 +74,7 @@ def make_env(
         discrete_action=discrete_action,
         discrete_action_input=discrete_action_input,
         force_discrete_action=force_discrete_action,
+        mesh=mesh,
     )
 
 
@@ -109,6 +116,7 @@ __all__ = [
     "rollout_statepolicy",
     "rollout_statepolicy_rewardsum",
     "rollout_statepolicy_fused",
+    "rollout_statepolicy_fused_sharded",
     "generate_shape",
     "ezpolicy",
     "ezpolicy_batched",

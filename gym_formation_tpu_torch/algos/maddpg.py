@@ -22,6 +22,14 @@ buffer from its ``maddpg.py``):
   buffer, then ``updates_per_iter`` sampled updates once the buffer holds a
   batch; and the checkpoint of the whole tuple, buffer included.
 
+Under a data-parallel mesh (the env's ``mesh``) each rank steps its
+``num_envs / W`` envs with the exploration's draws made at the global shape,
+and every env step's transitions are gathered, so that every rank inserts
+the whole global batch into its own ring: the buffers, the sampled batches,
+the updates' draws and so the parameters are the same on every rank, and
+the single process's.  The JAX package shards the ring over its capacity
+instead; the results are the same.
+
 Where the JAX package passes PRNG keys, the port splits drawing from using:
 ``_update_once(ts, batch, draws)`` takes the Gumbel noise (and MATD3's and
 MASAC's normal draws) as tensors, and ``train_step`` draws them from its
@@ -41,6 +49,7 @@ import torch
 
 from .. import _device
 from ..env import FormationEnv, benchmark_means
+from ..parallel import mesh as dp
 from ..models.networks import (
     StackedActor,
     StackedDeterministicActor,
@@ -197,14 +206,17 @@ class ReplayLearner:
     in and out of a checkpoint.  A learner defines its networks
     (``_networks``, ``init_state``) and the names of its loss metrics
     (``loss_keys``).  Its state is mutable: ``train_step`` updates it in
-    place and returns it."""
+    place and returns it.  Under the env's data-parallel mesh ``num_envs``
+    is the global batch, and :attr:`num_envs` this rank's share."""
 
     loss_keys: Tuple[str, ...] = ()
 
     def __init__(self, env: FormationEnv, cfg, num_envs: int, device, dtype: torch.dtype):
         self.env = env
         self.cfg = cfg
-        self.num_envs = num_envs
+        self.mesh = env.mesh
+        self.global_envs = num_envs
+        self.num_envs = dp.per_rank(num_envs, self.mesh)
         self.device = _device.resolve(device)
         self.dtype = dtype
         self.n_agents = env.num_agents
@@ -249,8 +261,9 @@ class ReplayLearner:
         reward means ``rewards``, and the benchmark means ``bench``."""
         zero = torch.zeros((), dtype=self.dtype, device=self.device)
         metrics = {k: torch.stack([m[k] for m in ms]).mean() if ms else zero for k in self.loss_keys}
-        metrics["mean_step_reward"] = torch.stack(rewards).mean()
-        metrics.update({k: torch.stack([b[k] for b in bench]).mean() for k in (bench[0] if bench else {})})
+        envs = {"mean_step_reward": torch.stack(rewards).mean()}
+        envs.update({k: torch.stack([b[k] for b in bench]).mean() for k in (bench[0] if bench else {})})
+        metrics.update(dp.rank_mean(envs, self.mesh))  # the rank's envs → the global batch's
         return metrics
 
     def _joint(self, x: torch.Tensor) -> torch.Tensor:
@@ -299,8 +312,9 @@ class OffPolicy(ReplayLearner):
             actions = self.explore_actions(ts, obs, generator)
             env_state, out = self.env.step(env_state, actions, generator)
             self._after_env_step(ts, out)
-            buffer.insert(obs, actions, out.reward, out.info.get("terminal_obs", out.obs), out.done[:, 0])
-            ts.env_steps += self.num_envs
+            rows = (obs, actions, out.reward, out.info.get("terminal_obs", out.obs), out.done[:, 0])
+            buffer.insert(*dp.gather_rows(rows, self.mesh))  # every rank's envs into every rank's ring
+            ts.env_steps += self.global_envs
             rewards.append(out.reward.mean())
             bench.append(benchmark_means(out.info))
             obs = out.obs
@@ -453,13 +467,14 @@ class MADDPG(OffPolicy):
 
     @torch.no_grad()
     def explore_actions(self, ts: MADDPGState, obs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        return self._explore(ts, obs, self._explore_draws(generator, obs.shape[0]))
+        draws = self._explore_draws(generator, obs.shape[0] * dp.size(self.mesh))
+        return self._explore(ts, obs, dp.local_rows(draws, self.mesh))
 
     def _after_env_step(self, ts: MADDPGState, out) -> None:
         cfg = self.cfg
         if cfg.ou_noise:
             ts.ou_state = torch.where(out.done[:, :1, None], cfg.ou_mu, ts.ou_state)
-        decay = cfg.explore_decay * self.num_envs
+        decay = cfg.explore_decay * self.global_envs
         ts.noise = max(cfg.explore_min, ts.noise - decay)
         ts.epsilon = max(cfg.explore_min, ts.epsilon - decay)
 

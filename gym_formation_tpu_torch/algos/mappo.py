@@ -30,6 +30,16 @@ for each epoch's whole gradient (``fused_update``).  K5, K9 and the
 structured path hold the shared Gaussian policy only: their auto gates stay
 off for a categorical head or per-agent networks, and forcing one there
 raises ``ValueError`` (the JAX package asserts).
+
+Under a data-parallel mesh (the env's ``mesh``, see
+:mod:`gym_formation_tpu_torch.parallel`) each rank collects on its
+``num_envs / W`` envs with the draws made at the global shape (K5 keyed by
+the rank's first env), and the update computes the single process's:
+advantage statistics and the value norm from global sums, each epoch's
+permutation over the global samples with every rank taking its rows of each
+minibatch, each rank's loss its share of the global mean, and one
+``all_reduce`` of the flat gradient (and the metrics) before every
+optimizer step.  The parameters stay equal on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import _device
 from ..env import FormationEnv, benchmark_means
+from ..parallel import mesh as dp
 from ..models.networks import (
     GaussianActor,
     LogitsActor,
@@ -118,7 +129,11 @@ class ValueNorm:
         return cls(mean=f(0.0), mean_sq=f(1.0), count=f(1e-4))
 
     def update(self, x: torch.Tensor) -> "ValueNorm":
-        b_mean, b_sq, b_n = x.mean(), (x * x).mean(), x.numel()
+        return self.update_moments(x.mean(), (x * x).mean(), x.numel())
+
+    def update_moments(self, b_mean: torch.Tensor, b_sq: torch.Tensor, b_n: int) -> "ValueNorm":
+        """:meth:`update` from a batch's mean, mean square and count (under
+        a mesh, the global batch's)."""
         n = self.count + b_n
         w = b_n / n
         return ValueNorm(mean=self.mean * (1 - w) + b_mean * w,
@@ -158,16 +173,21 @@ def huber(x: torch.Tensor, delta: float) -> torch.Tensor:
 class MAPPO:
     """MAPPO over a batch of ``num_envs`` :class:`FormationEnv` envs on
     ``device`` (the card unless ``device="cpu"`` is given), with parameters
-    in ``dtype``."""
+    in ``dtype``.  Under the env's data-parallel mesh ``num_envs`` is the
+    global batch, and :attr:`num_envs` this rank's share."""
 
     # K5, K9 and the structured path may serve this learner (RMAPPO: never)
     kernel_paths = True
+    # the axis of a minibatch's leaves that runs over its samples
+    _row_axis = 0
 
     def __init__(self, env: FormationEnv, cfg: MAPPOConfig = MAPPOConfig(), num_envs: int = 128,
                  device="cuda", dtype: torch.dtype = torch.float32):
         self.env = env
         self.cfg = cfg
-        self.num_envs = num_envs
+        self.mesh = env.mesh
+        self.global_envs = num_envs
+        self.num_envs = dp.per_rank(num_envs, self.mesh)
         self.device = _device.resolve(device)
         self.dtype = dtype
         self.n_agents = env.num_agents
@@ -273,18 +293,18 @@ class MAPPO:
     # (mean, log_std), a categorical's its logits
     def _dist_sample(self, generator, dist):
         if self.discrete:
-            return categorical_sample(generator, dist)
-        return gaussian_sample(generator, *dist)
+            return categorical_sample(generator, dist, self.mesh)
+        return gaussian_sample(generator, *dist, self.mesh)
 
     def _dist_logp(self, dist, action):
         if self.discrete:
             return categorical_logp(dist, action)
         return gaussian_logp(*dist, action)
 
-    def _dist_entropy(self, dist):
+    def _dist_entropy(self, dist, mean=torch.mean):
         if self.discrete:
-            return categorical_entropy(dist).mean()
-        return gaussian_entropy(dist[1]).mean()
+            return mean(categorical_entropy(dist))
+        return mean(gaussian_entropy(dist[1]))
 
     def _dist_mode(self, dist):
         return onehot_from_logits(dist) if self.discrete else dist[0]
@@ -337,6 +357,7 @@ class MAPPO:
         soa, traj = k5.fused_collect_hd(
             state_to_soa(env_state), k5.actor_planes(ts.actor), k5.critic_planes(ts.critic),
             self._next_seed(), length=self.cfg.rollout_len, ep_len=self.env.world_length, n=N,
+            env_offset=dp.rank(self.mesh) * B,
         )
         # the JAX package also refreshes per-env PRNG keys here; the port's
         # env keeps none
@@ -367,7 +388,7 @@ class MAPPO:
         for _ in range(self.cfg.rollout_len):
             parts = self._parts(env_state)
             (mean, log_std), value = self._structured_dist_value(ts, parts)
-            action = gaussian_sample(generator, mean, log_std)
+            action = gaussian_sample(generator, mean, log_std, self.mesh)
             logp = gaussian_logp(mean, log_std, action)
             env_state, out = self.env.step_state(env_state, action, generator)
             steps.append(dict(parts, action=action, logp=logp, value=value,
@@ -400,9 +421,21 @@ class MAPPO:
         return adv, adv + values
 
     # -- update -------------------------------------------------------------
-    def _loss(self, ts: MAPPOState, batch: Dict[str, torch.Tensor], vn: ValueNorm):
-        """The PPO loss and its metrics (0-dim tensors)."""
+    def _mean_fn(self, rows: Optional[int]):
+        """The loss's mean: over the batch; or, given the global minibatch's
+        sample count ``rows`` (under a mesh), this rank's share of the
+        global mean, a sum divided by the global count."""
+        if rows is None:
+            return torch.mean
+        ax = self._row_axis
+        return lambda x: x.sum() / (rows * math.prod(s for i, s in enumerate(x.shape) if i != ax))
+
+    def _loss(self, ts: MAPPOState, batch: Dict[str, torch.Tensor], vn: ValueNorm, rows: Optional[int] = None):
+        """The PPO loss and its metrics (0-dim tensors); ``rows`` as
+        :meth:`_mean_fn`.  Under a mesh the auto_entropy coefficient's loss,
+        which no sample carries, is left to :meth:`_reduce`."""
         cfg = self.cfg
+        mean = self._mean_fn(rows)
         if "obs" in batch:
             obs = batch["obs"]
             dist = ts.actor(obs)
@@ -417,46 +450,58 @@ class MAPPO:
             adv = adv[:, None]  # env-level advantage → all agents
         pg1 = ratio * adv
         pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-        pg_loss = -torch.minimum(pg1, pg2).mean()
-        entropy = self._dist_entropy(dist)
+        pg_loss = -mean(torch.minimum(pg1, pg2))
+        entropy = self._dist_entropy(dist, mean)
         target, v_old = batch["target"], batch["value"]
         v_clip = v_old + torch.clamp(value - v_old, -cfg.clip_eps, cfg.clip_eps)
-        v_loss = torch.maximum(huber(value - target, cfg.huber_delta),
-                               huber(v_clip - target, cfg.huber_delta)).mean()
+        v_loss = mean(torch.maximum(huber(value - target, cfg.huber_delta),
+                                    huber(v_clip - target, cfg.huber_delta)))
         if cfg.auto_entropy:
             alpha_raw = ts.log_alpha  # the raw signed coefficient
             coef = torch.clamp(alpha_raw, -cfg.alpha_max, cfg.alpha_max).detach()
-            # descent on α · (H − H*): α falls while H > H*, rises while H < H*
-            alpha_loss = alpha_raw * (entropy.detach() - self.entropy_target)
-            ent_term = coef * entropy - alpha_loss
+            ent_term = coef * entropy
+            if rows is None:
+                # descent on α · (H − H*): α falls while H > H*, rises while H < H*
+                ent_term = ent_term - alpha_raw * (entropy.detach() - self.entropy_target)
         else:
             ent_term = cfg.entropy_coef * entropy
         total = pg_loss - ent_term + cfg.value_coef * v_loss
         metrics = {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy,
-                   "approx_kl": (batch["logp"] - logp).mean()}
+                   "approx_kl": mean(batch["logp"] - logp)}
         if cfg.auto_entropy:
             metrics["alpha"] = ts.log_alpha.detach().clone()  # the optimizer updates it in place
         return total, metrics
 
-    def _grads(self, ts: MAPPOState, batch):
+    def _grads(self, ts: MAPPOState, batch, rows: Optional[int] = None):
         """(gradients in ``ts.params()`` order, metrics) of one minibatch by
-        autograd, chunked by ``grad_accum`` and rematerialized by ``remat``."""
+        autograd, chunked by ``grad_accum`` and rematerialized by ``remat``;
+        ``rows`` as :meth:`_mean_fn` (then the chunks' shares add up)."""
         cfg, params = self.cfg, ts.params()
 
         def one(chunk):
             if cfg.remat:
                 # the backward recomputes the forward instead of holding the
                 # activations (torch.utils.checkpoint for jax.checkpoint)
-                total, met = checkpoint(lambda c: self._loss(ts, c, ts.value_norm), chunk,
+                total, met = checkpoint(lambda c: self._loss(ts, c, ts.value_norm, rows), chunk,
                                         use_reentrant=False)
             else:
-                total, met = self._loss(ts, chunk, ts.value_norm)
-            grads = torch.autograd.grad(total, params)
+                total, met = self._loss(ts, chunk, ts.value_norm, rows)
+            if rows is None:
+                grads = torch.autograd.grad(total, params)
+            else:  # log_alpha has no share in a rank's loss
+                grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
             return list(grads), {k: v.detach() for k, v in met.items()}
 
         K = cfg.grad_accum
         if K <= 1:
             return one(batch)
+        if rows is not None:
+            # a rank's rows of a minibatch need not divide by K: each chunk
+            # gives its share of the global mean, and the shares add up
+            parts = [one(dict(zip(batch, c))) for c in zip(*(torch.tensor_split(v, K) for v in batch.values()))]
+            grads = [sum(gs) for gs in zip(*(p[0] for p in parts))]
+            met = {k: sum(p[1][k] for p in parts) for k in parts[0][1] if k != "alpha"}
+            return grads, dict(parts[0][1], **met)
         m = batch["action"].shape[0]
         assert m % K == 0, (m, K)
         gsum, msum = None, None
@@ -474,6 +519,48 @@ class MAPPO:
     def _apply(self, ts: MAPPOState, grads) -> None:
         ts.opt_state = self.tx.step(ts.params(), grads, ts.opt_state)
 
+    def _reduce(self, grads, met, whole: Sequence[str] = ("alpha",)):
+        """Under a mesh, the ranks' gradient and metric shares summed by one
+        ``all_reduce`` of their flat concatenation (the metrics named in
+        ``whole`` are every rank's already), and the auto_entropy
+        coefficient's gradient ``H − H*`` from the summed entropy.  Without
+        a mesh, the arguments as they are."""
+        if self.mesh is None:
+            return grads, met
+        keys = [k for k in met if k not in whole]
+        flat = dp.sum_flat(list(grads) + [met[k] for k in keys], self.mesh)
+        grads, met = flat[:len(grads)], dict(met, **dict(zip(keys, flat[len(grads):])))
+        if self.cfg.auto_entropy:  # log_alpha is the last parameter
+            grads[-1] = (met["entropy"] - self.entropy_target).to(grads[-1].dtype).reshape(grads[-1].shape)
+        return grads, met
+
+    def _rank_batches(self, data, generator, perms, epoch: int, n_rows: int, cut):
+        """One epoch's minibatches and their global sample counts: the
+        permutation of the ``n_rows`` global samples (drawn from
+        ``generator``, or ``perms[epoch]``), cut into ``num_minibatches``,
+        each kept to this rank's samples by ``cut(data, local index)``.  A
+        sample's global index is ``k·B + b`` with b its global env (the
+        leaves' layout with the global batch), so a rank holds the samples
+        of its envs ``[r·B/W, (r+1)·B/W)``."""
+        cfg = self.cfg
+        mb = n_rows // cfg.num_minibatches
+        if cfg.num_minibatches == 1:
+            # one minibatch: shuffling changes nothing, and a gather
+            # would copy the whole trajectory
+            return [(data, None if self.mesh is None else mb)]
+        perm = perms[epoch] if perms is not None else torch.randperm(
+            n_rows, generator=generator, device=generator.device)
+        perm = perm.to(self.device)
+        if self.mesh is None:
+            return [(cut(data, idx), None) for idx in perm[:cfg.num_minibatches * mb].reshape(-1, mb)]
+        Bg, B, r = self.global_envs, self.num_envs, dp.rank(self.mesh)
+        out = []
+        for idx in perm[:cfg.num_minibatches * mb].reshape(-1, mb):
+            b = idx % Bg
+            mine = idx[(b >= r * B) & (b < (r + 1) * B)]
+            out.append((cut(data, (mine // Bg) * B + mine % Bg - r * B), mb))
+        return out
+
     @staticmethod
     def _mean_metrics(ms: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
         return {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
@@ -484,22 +571,12 @@ class MAPPO:
         epoch's minibatches come from a permutation drawn from
         ``generator``, or from ``perms[epoch]`` where given."""
         cfg = self.cfg
-        M = cfg.rollout_len * self.num_envs
-        mb = M // cfg.num_minibatches
+        cut = lambda d, idx: {k: v[idx] for k, v in d.items()}
         ms = []
         for epoch in range(cfg.ppo_epochs):
-            if cfg.num_minibatches == 1:
-                # one minibatch: shuffling changes nothing, and a gather
-                # would copy the whole trajectory
-                batches = [data]
-            else:
-                perm = perms[epoch] if perms is not None else torch.randperm(
-                    M, generator=generator, device=generator.device)
-                perm = perm.to(data["action"].device)
-                batches = [{k: v[perm[i * mb:(i + 1) * mb]] for k, v in data.items()}
-                           for i in range(cfg.num_minibatches)]
-            for batch in batches:
-                grads, met = self._grads(ts, batch)
+            for batch, rows in self._rank_batches(data, generator, perms, epoch,
+                                                  cfg.rollout_len * self.global_envs, cut):
+                grads, met = self._reduce(*self._grads(ts, batch, rows))
                 self._apply(ts, grads)
                 ms.append(met)
         return ts, self._mean_metrics(ms)
@@ -510,7 +587,7 @@ class MAPPO:
         assert self.cfg.num_minibatches == 1
         ms = []
         for _ in range(self.cfg.ppo_epochs):
-            grads, met = self._fused_epoch_grads(ts, data)
+            grads, met = self._reduce(*self._fused_epoch_grads(ts, data), whole=("entropy",))
             self._apply(ts, grads)
             ms.append(met)
         return ts, self._mean_metrics(ms)
@@ -519,7 +596,7 @@ class MAPPO:
         """One epoch's (gradients in ``ts.params()`` order, metrics) by K9,
         gradient-matched to autograd of :meth:`_loss`."""
         cfg = self.cfg
-        M = cfg.rollout_len * self.num_envs
+        M = cfg.rollout_len * self.global_envs  # the samples the loss averages over
         actor, critic = ts.actor, ts.critic
         f = lambda t: t.detach().to(torch.float32).contiguous()
         (a1, a2), (c1, c2) = actor.mlp.layers, critic.mlp.layers
@@ -534,10 +611,13 @@ class MAPPO:
             {k: data[k] for k in ("obs", "action", "logp", "adv", "value", "target")},
             actor_ops, critic_ops, n_agents=self.n_agents, act_dim=self.act_dim,
             clip_eps=cfg.clip_eps, huber_delta=cfg.huber_delta, value_coef=cfg.value_coef,
+            global_rows=None if self.mesh is None else M,
         )
-        # entropy term: d(-ce · mean Σ_d ls_d)/d ls_d = -ce; then the chain
-        # through the soft_bound the actor applies to its raw parameter
-        d_ls_b = (ga[6] - cfg.entropy_coef).to(ls_b.dtype)
+        # entropy term: d(-ce · mean Σ_d ls_d)/d ls_d = -ce (counted once, by
+        # rank 0, under a mesh); then the chain through the soft_bound the
+        # actor applies to its raw parameter
+        ce = cfg.entropy_coef if dp.rank(self.mesh) == 0 else 0.0
+        d_ls_b = (ga[6] - ce).to(ls_b.dtype)
         (d_ls_raw,) = torch.autograd.grad(ls_b, ls_raw, d_ls_b)
         by_name = {
             "mlp.layers.0.weight": ga[0].T, "mlp.layers.0.bias": ga[1],
@@ -566,6 +646,8 @@ class MAPPO:
         advantages and the value targets, [T, B] (or [T, B, N] per agent)."""
         adv, returns = self._gae(ts, traj, last_value)
         vn = ts.value_norm
+        if self.mesh is not None:
+            return self._targets_global(ts, adv, returns)
         if self.cfg.use_value_norm:
             vn = vn.update(returns)
             target = vn.normalize(returns)
@@ -573,6 +655,23 @@ class MAPPO:
             target = returns
         ts.value_norm = vn
         return (adv - adv.mean()) / (adv.std(unbiased=False) + 1e-5), target
+
+    def _targets_global(self, ts: MAPPOState, adv, returns):
+        """:meth:`_targets` over the global batch under a mesh: the sums of
+        the advantages and of the returns and their squares in one
+        ``all_reduce``, then the advantages' squared deviations from the
+        global mean in a second (``std(unbiased=False)``)."""
+        n = adv.numel() * dp.size(self.mesh)
+        s_adv, s_ret, s_sq = dp.sum_flat([adv.sum(), returns.sum(), (returns * returns).sum()], self.mesh)
+        target = returns
+        if self.cfg.use_value_norm:
+            ts.value_norm = ts.value_norm.update_moments(s_ret / n, s_sq / n, n)
+            target = ts.value_norm.normalize(returns)
+        mu = s_adv / n
+        (ss,) = dp.sum_flat([((adv - mu) ** 2).sum()], self.mesh)
+        return (adv - mu) / (torch.sqrt(ss / n) + 1e-5), target
+
+
 
     @torch.no_grad()
     def _prepare(self, ts: MAPPOState, traj, last_value):
@@ -605,8 +704,8 @@ class MAPPO:
         ts, data = self._prepare(ts, traj, last_value)
         update = self._update_fused if self.cfg.fused_update else self._update
         ts, metrics = update(ts, data, generator)
-        metrics["mean_step_reward"] = traj["reward"].mean()
-        metrics.update({k: v.mean() for k, v in bench.items()})
+        metrics.update(dp.rank_mean(dict(mean_step_reward=traj["reward"].mean(),
+                                         **{k: v.mean() for k, v in bench.items()}), self.mesh))
         ts.update_i += 1
         return ts, env_state, obs, metrics
 

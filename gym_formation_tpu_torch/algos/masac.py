@@ -21,6 +21,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..env import FormationEnv
+from ..parallel import mesh as dp
 from ..models.networks import (
     StackedActor,
     StackedSquashedGaussianActor,
@@ -151,15 +152,17 @@ class MASAC(OffPolicy):
 
     @torch.no_grad()
     def explore_actions(self, ts: MASACState, obs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        """A policy sample, or uniform actions (one-hots) during the warm-up."""
-        shape = obs.shape[:2] + (self.act_dim,)
+        """A policy sample, or uniform actions (one-hots) during the warm-up;
+        the draws at the global batch's shape under a mesh."""
+        shape = (obs.shape[0] * dp.size(self.mesh), obs.shape[1], self.act_dim)
+        rows = lambda x: dp.local_rows(x, self.mesh)
         if ts.env_steps < self.cfg.warmup_random_steps:
             if self.discrete:
-                idx = torch.randint(0, self.act_dim, shape[:2], generator=generator, device=self.device)
+                idx = rows(torch.randint(0, self.act_dim, shape[:2], generator=generator, device=self.device))
                 return torch.nn.functional.one_hot(idx, self.act_dim).to(self.dtype)
             h = self.cfg.high_action
-            return torch.rand(shape, generator=generator, dtype=self.dtype, device=self.device) * (2 * h) - h
-        return self._explore(ts, obs, self._noise(generator, shape))
+            return rows(torch.rand(shape, generator=generator, dtype=self.dtype, device=self.device)) * (2 * h) - h
+        return self._explore(ts, obs, rows(self._noise(generator, shape)))
 
     @torch.no_grad()
     def eval_actions(self, ts: MASACState, obs: torch.Tensor) -> torch.Tensor:

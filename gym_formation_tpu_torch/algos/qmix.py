@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..env import FormationEnv
+from ..parallel import mesh as dp
 from ..models.networks import LogitsActor, QMixer, logits_actor_from_flax, qmixer_from_flax
 from .maddpg import OffPolicy, ReplayBuffer, hard_update, soft_update
 from .optim import AdamState, ClipAdam
@@ -155,10 +156,10 @@ class QMix(Mixing, OffPolicy):
 
     @torch.no_grad()
     def explore_actions(self, ts: QMixState, obs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-        shape = obs.shape[:2]
+        shape = (obs.shape[0] * dp.size(self.mesh), obs.shape[1])  # the global batch's draws
         draws = {"uniform": torch.rand(shape, generator=generator, dtype=self.dtype, device=self.device),
                  "rand": torch.randint(0, self.N_ACTIONS, shape, generator=generator, device=self.device)}
-        return self._explore(ts, obs, draws)
+        return self._explore(ts, obs, dp.local_rows(draws, self.mesh))
 
     @torch.no_grad()
     def eval_actions(self, ts: QMixState, obs: torch.Tensor) -> torch.Tensor:

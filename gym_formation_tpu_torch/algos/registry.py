@@ -38,13 +38,18 @@ def _require_known(name: str) -> None:
 
 def make_algo(name: str, env, num_envs: int, sets: Sequence[str] = (),
               config_yaml: Optional[str] = None, lr: Optional[float] = None, device="cuda",
-              config: Optional[Mapping] = None):
+              config: Optional[Mapping] = None, mesh=None):
     """The learner ``name`` over ``env`` on ``device``: config defaults ←
     ``config`` (a checkpoint's) ← ``config_yaml`` ← ``lr`` ← what the name
     implies (``ddpg``: ``centralized=False``; ``rmatd3``: ``twin=True``;
     ``qmix``/``vdn``/``rqmix``/``rvdn``: the mixer) ← the ``key=value``
     strings of ``sets``.  ``lr`` sets both ``lr_actor`` and ``lr_critic``
-    of the MADDPG family and of RMADDPG/RMATD3."""
+    of the MADDPG family and of RMADDPG/RMATD3.
+
+    ``mesh``: a data-parallel mesh (:mod:`gym_formation_tpu_torch.parallel`)
+    that the env and the learner then carry; ``num_envs`` is the global
+    batch and must divide by its size."""
+    from ..parallel.mesh import per_rank
     from ..utils.config import load_config
     from .maddpg import MADDPG, MADDPGConfig
     from .mappo import MAPPO, MAPPOConfig
@@ -57,6 +62,9 @@ def make_algo(name: str, env, num_envs: int, sets: Sequence[str] = (),
     from .rqmix import RQMix, RQMixConfig
 
     _require_known(name)
+    if mesh is not None:
+        env.mesh = mesh
+    per_rank(num_envs, env.mesh)
     cls, cfg_cls, implied = {
         "mappo": (MAPPO, MAPPOConfig, []),
         "rmappo": (RMAPPO, RMAPPOConfig, []),

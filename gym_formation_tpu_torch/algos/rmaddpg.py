@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..env import FormationEnv, benchmark_means
+from ..parallel import mesh as dp
 from ..models.networks import (
     StackedGRUPolicy,
     StackedQCritic,
@@ -172,10 +173,11 @@ class Episodic(ReplayLearner):
         Returns the step reward means and the benchmark means."""
         B = self.num_envs
         env_state, obs = self.env.reset(generator, B)
-        episodes, rewards, bench = self._collect_episodes(ts, env_state, obs, self._episode_draws(generator, B),
-                                                          generator)
-        buffer.insert(*episodes)
-        ts.env_steps += B * self.T
+        # the draws of all ranks' envs, the rank's rows kept
+        draws = dp.local_rows(self._episode_draws(generator, self.global_envs), self.mesh)
+        episodes, rewards, bench = self._collect_episodes(ts, env_state, obs, draws, generator)
+        buffer.insert(*dp.gather_rows(episodes, self.mesh))  # every rank's episodes into every rank's ring
+        ts.env_steps += self.global_envs * self.T
         self._after_collection(ts)
         return rewards, bench
 
@@ -319,7 +321,7 @@ class RMADDPG(Episodic):
 
     def _after_collection(self, ts: RMADDPGState) -> None:
         cfg = self.cfg
-        ts.noise = max(cfg.explore_min, ts.noise - cfg.explore_decay * self.num_envs * self.T)
+        ts.noise = max(cfg.explore_min, ts.noise - cfg.explore_decay * self.global_envs * self.T)
 
     # -- losses and the update ----------------------------------------------
     def _q(self, critic: torch.nn.Module, o: torch.Tensor, u: torch.Tensor):

@@ -21,6 +21,7 @@ import torch
 
 from ..env import FormationEnv, benchmark_means
 from ..models.networks import GRUCritic, GRUPolicy, gru_critic_from_flax, gru_policy_from_flax
+from ..parallel import mesh as dp
 from .mappo import MAPPO, MAPPOConfig, MAPPOState, huber
 
 
@@ -41,6 +42,7 @@ class RunnerCarry:
 
 class RMAPPO(MAPPO):
     kernel_paths = False
+    _row_axis = 1  # a minibatch's leaves are [L, chunks, ...]
 
     def __init__(self, env: FormationEnv, cfg: RMAPPOConfig = RMAPPOConfig(), num_envs: int = 128,
                  device="cuda", dtype: torch.dtype = torch.float32):
@@ -114,11 +116,12 @@ class RMAPPO(MAPPO):
         return env_state, obs, carry, self._stack(steps), self._stack(bench), last_value
 
     # -- update -------------------------------------------------------------
-    def _loss(self, ts: MAPPOState, batch: Dict[str, torch.Tensor], vn):
+    def _loss(self, ts: MAPPOState, batch: Dict[str, torch.Tensor], vn, rows: Optional[int] = None):
         """The PPO loss over BPTT chunks: ``batch`` leaves [L, m, ...] and
         the chunks' initial carries ``h_actor0`` [m, N, H], ``h_critic0``
-        [m, H]."""
+        [m, H]; ``rows`` (under a mesh) the global minibatch's chunks."""
         cfg = self.cfg
+        mean = self._mean_fn(rows)
         h_a, h_c = batch["h_actor0"], batch["h_critic0"]
         dists, values = [], []
         for obs, reset in zip(batch["obs"], batch["reset"]):
@@ -135,15 +138,15 @@ class RMAPPO(MAPPO):
         adv = batch["adv"][..., None]
         pg1 = ratio * adv
         pg2 = torch.clamp(ratio, 1 - cfg.clip_eps, 1 + cfg.clip_eps) * adv
-        pg_loss = -torch.minimum(pg1, pg2).mean()
-        entropy = self._dist_entropy(dist)
+        pg_loss = -mean(torch.minimum(pg1, pg2))
+        entropy = self._dist_entropy(dist, mean)
         target, v_old = batch["target"], batch["value"]
         v_clip = v_old + torch.clamp(value - v_old, -cfg.clip_eps, cfg.clip_eps)
-        v_loss = torch.maximum(huber(value - target, cfg.huber_delta),
-                               huber(v_clip - target, cfg.huber_delta)).mean()
+        v_loss = mean(torch.maximum(huber(value - target, cfg.huber_delta),
+                                    huber(v_clip - target, cfg.huber_delta)))
         total = pg_loss - cfg.entropy_coef * entropy + cfg.value_coef * v_loss
         return total, {"pg_loss": pg_loss, "v_loss": v_loss, "entropy": entropy,
-                       "approx_kl": (batch["logp"] - logp).mean()}
+                       "approx_kl": mean(batch["logp"] - logp)}
 
     @torch.no_grad()
     def _prepare(self, ts: MAPPOState, traj, last_value):
@@ -173,23 +176,16 @@ class RMAPPO(MAPPO):
                           perms: Optional[Sequence[torch.Tensor]] = None):
         """``ppo_epochs`` × ``num_minibatches`` updates, the minibatches
         over chunks: from a permutation drawn from ``generator``, or from
-        ``perms[epoch]`` where given."""
+        ``perms[epoch]`` where given (of the global chunks under a mesh;
+        the carries stay the rank's)."""
         cfg = self.cfg
         chunked = self._chunks(data)
-        M = chunked["h_critic0"].shape[0]
-        mb = M // cfg.num_minibatches
+        n_rows = cfg.rollout_len // cfg.data_chunk_length * self.global_envs
+        cut = lambda d, idx: {k: v[idx] if k.endswith("0") else v[:, idx] for k, v in d.items()}
         ms = []
         for epoch in range(cfg.ppo_epochs):
-            if cfg.num_minibatches == 1:
-                batches = [chunked]  # shuffling one minibatch changes nothing
-            else:
-                perm = perms[epoch] if perms is not None else torch.randperm(
-                    M, generator=generator, device=generator.device)
-                perm = perm.to(self.device)
-                batches = [{k: v[idx] if k.endswith("0") else v[:, idx] for k, v in chunked.items()}
-                           for idx in perm.reshape(cfg.num_minibatches, mb)]
-            for batch in batches:
-                grads, met = self._grads(ts, batch)
+            for batch, rows in self._rank_batches(chunked, generator, perms, epoch, n_rows, cut):
+                grads, met = self._reduce(*self._grads(ts, batch, rows))
                 self._apply(ts, grads)
                 ms.append(met)
         return ts, self._mean_metrics(ms)
@@ -203,8 +199,8 @@ class RMAPPO(MAPPO):
                 ts, env_state, obs, carry, generator)
         ts, data = self._prepare(ts, traj, last_value)
         ts, metrics = self._update_recurrent(ts, data, generator)
-        metrics["mean_step_reward"] = traj["reward"].mean()
-        metrics.update({k: v.mean() for k, v in bench.items()})
+        metrics.update(dp.rank_mean(dict(mean_step_reward=traj["reward"].mean(),
+                                         **{k: v.mean() for k, v in bench.items()}), self.mesh))
         ts.update_i += 1
         return ts, env_state, obs, carry, metrics
 

@@ -7,7 +7,7 @@ reset from it in a fixed order.  :func:`host_reset` replays that order with a
 ``np.random.RandomState``, and :func:`state_from_numpy` loads host arrays of
 one env into an :class:`~gym_formation_tpu_torch.core.types.EnvState`: a
 batch of one (``[1, ...]``, the shape every entry point of the port takes for
-a single env) on ``device``, the CPU unless another is given.
+a single env) on ``device``, the card unless ``device="cpu"`` is given.
 
 Not to be confused with :func:`gym_formation_tpu_torch.core.state_from_numpy`,
 which loads a whole batched state from a dict of arrays (or a JAX state); this
@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import _device
 from ..core.types import EnvState
 from ..envs.scenario import Scenario
 
@@ -36,14 +37,16 @@ def state_from_numpy(
     ideal_vel: Optional[np.ndarray] = None,
     t: int = 0,
     dtype: Optional[torch.dtype] = None,
-    device="cpu",
+    device="cuda",
 ) -> EnvState:
-    """An :class:`EnvState` of one env (batch axis of 1) on ``device`` from
-    host arrays, e.g. a reset captured from the original environment.  Float
+    """An :class:`EnvState` of one env (batch axis of 1) on ``device`` (the
+    card unless ``device="cpu"`` is given; raises without one) from host
+    arrays, e.g. a reset captured from the original environment.  Float
     fields take ``dtype`` (default the scenario's).  The JAX signature less
     its ``key``: the port's state has no PRNG key."""
     cfg = scenario.cfg
     dtype = dtype or scenario.dtype
+    device = _device.resolve(device)
 
     def host(a, *shape):
         return np.zeros(shape) if a is None else np.asarray(a)
@@ -62,9 +65,10 @@ def state_from_numpy(
     )
 
 
-def host_reset(scenario: Scenario, seed: Optional[int] = None, rng=None, device="cpu") -> EnvState:
+def host_reset(scenario: Scenario, seed: Optional[int] = None, rng=None, device="cuda") -> EnvState:
     """The original environment's reset draws for ``scenario``: one env in
-    the scenario's dtype on ``device``.
+    the scenario's dtype on ``device`` (the card unless ``device="cpu"`` is
+    given; raises without one).
 
     With ``rng`` None, seeds a fresh MT19937 with ``seed`` (default 1, the
     original environment's) and replays each scenario's draw order:
@@ -79,7 +83,7 @@ def host_reset(scenario: Scenario, seed: Optional[int] = None, rng=None, device=
     if rng is None:
         rng = np.random.RandomState(1 if seed is None else seed)
     cfg = scenario.cfg
-    kw = dict(device=device)
+    kw = dict(device=_device.resolve(device))
     apos = np.stack([rng.uniform(-1, 1, cfg.dim_p) for _ in range(cfg.n_agents)])
     name = scenario.name
     if name == "formation_hd_env":

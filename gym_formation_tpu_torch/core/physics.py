@@ -38,6 +38,7 @@ import torch
 
 from .. import _device
 from ..ops.kernels import pairforce, pairforce_cull, pairforce_sym
+from ..parallel.mesh import draw_rows
 from .types import WallCfg, WorldCfg
 
 PALLAS_IMPLS = ("auto", "dense", "cull", "sym")
@@ -194,15 +195,16 @@ def wall_forces(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
 
 
 def action_forces(
-    u: torch.Tensor, cfg: WorldCfg, generator: Optional[torch.Generator] = None
+    u: torch.Tensor, cfg: WorldCfg, generator: Optional[torch.Generator] = None, mesh=None
 ) -> torch.Tensor:
     """Control forces for agents, padded with zeros for landmarks.
     u [B, N, P] → [B, E, P].  ``F = mass * (accel or 1) * u``, plus
-    ``u_noise * N(0, 1)`` drawn from ``generator`` when given."""
+    ``u_noise * N(0, 1)`` drawn from ``generator`` when given (at the global
+    batch's shape under a data-parallel ``mesh``, the rank's rows kept)."""
     f_agents = _device.const(cfg.act_coef, u)[:, None] * u
     if generator is not None and np.any(cfg.u_noise > 0):
-        noise = torch.randn(
-            u.shape, generator=generator, device=u.device, dtype=u.dtype
+        noise = draw_rows(
+            lambda s: torch.randn(s, generator=generator, device=u.device, dtype=u.dtype), u.shape, mesh
         )
         f_agents = f_agents + noise * _device.const(cfg.u_noise, u)[:, None]
     pad = u.new_zeros(u.shape[:-2] + (cfg.n_landmarks, u.shape[-1]))
@@ -235,6 +237,7 @@ def world_step(
     u: torch.Tensor,
     cfg: WorldCfg,
     generator: Optional[torch.Generator] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One physics step for a batch of environments.
 
@@ -242,8 +245,9 @@ def world_step(
       pos, vel: [B, E, P] entity state, agents first.
       u: [B, n_agents, P] control (already sensitivity-scaled by the env).
       generator: draws the motor noise, where the config has any.
+      mesh: the data-parallel mesh of the batch (the noise's draws).
     """
-    force = action_forces(u, cfg, generator)
+    force = action_forces(u, cfg, generator, mesh)
     force = force + collision_forces(pos, cfg)
     if cfg.walls:
         force = force + wall_forces(pos, cfg)

@@ -276,7 +276,8 @@ __device__ __forceinline__ void build_obs(const Env<n>& s, float* ob) {
   }
 }
 
-// The step of env b (row: its trajectory row) after the actions: the
+// The step of env b (row: its trajectory row; b its global index, which keys
+// its draws) after the actions: the
 // log-density of the normals z [2n], the physics of the actions act [2n],
 // the reward of the stepped state, done and the auto-reset.
 template <int n>
@@ -400,13 +401,14 @@ __device__ __forceinline__ void env_step(Env<n>& s, const float* z, const float*
 }
 
 // The normals of step it of the tile's envs into z [E][2n]: z[e][o] =
-// normal(seed, it, o, 1, b0 + e), drawn by the block's last threads (the
-// first E run the envs).
+// normal(seed, it, o, 1, lane0 + b0 + e), drawn by the block's last threads
+// (the first E run the envs).
 template <int n, int E>
-__device__ __forceinline__ void draw_normals(float* z, unsigned seed, unsigned it, int b0) {
+__device__ __forceinline__ void draw_normals(float* z, unsigned seed, unsigned it, int b0,
+                                             unsigned lane0) {
   constexpr int A = 2 * n;
   for (int j = NT - 1 - (int)threadIdx.x; j < E * A; j += NT)
-    z[j] = normal(seed, it, (unsigned)(j % A), 1u, (unsigned)(b0 + j / A));
+    z[j] = normal(seed, it, (unsigned)(j % A), 1u, lane0 + (unsigned)(b0 + j / A));
 }
 
 template <int n, int E>
@@ -415,8 +417,9 @@ __global__ void __launch_bounds__(NT, Dims<n, E>::MIN_BLOCKS) fused_collect_kern
     const float* __restrict__ is_in, const float* __restrict__ iv_in,
     const int* __restrict__ t_in, Weights g, float* __restrict__ ap_out,
     float* __restrict__ av_out, float* __restrict__ is_out, float* __restrict__ iv_out,
-    int* __restrict__ t_out, Traj tr, int B, int T, int ep_len, unsigned seed, float sens,
-    float dmin, float thresh2, float cf, float margin, float invk, float keep, float dt) {
+    int* __restrict__ t_out, Traj tr, int B, int T, int ep_len, unsigned seed, unsigned lane0,
+    float sens, float dmin, float thresh2, float cf, float margin, float invk, float keep,
+    float dt) {
   using D = Dims<n, E>;
   constexpr int DO = D::DO, DC = D::DC, A = D::A;
   extern __shared__ __align__(16) float smem[];
@@ -480,7 +483,7 @@ __global__ void __launch_bounds__(NT, Dims<n, E>::MIN_BLOCKS) fused_collect_kern
       s.t = t_in[b];
     }
     if (tid < E) build_obs<n>(s, obs + tid * DC);  // past the batch: zeros
-    draw_normals<n, E>(zb, seed, 0u, b0);
+    draw_normals<n, E>(zb, seed, 0u, b0, lane0);
     __syncthreads();  // weights, observations and normals in place
 
     for (int it = 0; it < T; ++it) {
@@ -512,11 +515,12 @@ __global__ void __launch_bounds__(NT, Dims<n, E>::MIN_BLOCKS) fused_collect_kern
       __syncthreads();
       // ---- scalar phase: one thread an env
       if (mine)
-        env_step<n>(s, z + tid * A, act + tid * A, tr, row0 + tid, (unsigned)b, (unsigned)it, seed,
+        env_step<n>(s, z + tid * A, act + tid * A, tr, row0 + tid, lane0 + (unsigned)b, (unsigned)it, seed,
                     ep_len, ls_sum, sens, dmin, thresh2, cf, margin, invk, keep, dt);
       if (tid < E && it + 1 < T) build_obs<n>(s, obs + tid * DC);
       // ---- end of the scalar phase
-      if (it + 1 < T) draw_normals<n, E>(zb + ((it + 1) & 1) * E * A, seed, (unsigned)(it + 1), b0);
+      if (it + 1 < T)
+        draw_normals<n, E>(zb + ((it + 1) & 1) * E * A, seed, (unsigned)(it + 1), b0, lane0);
       __syncthreads();
     }
 
@@ -557,14 +561,15 @@ int plan(int smem) {
 
 template <int n, int E>
 int launch(const void* const* in, const Weights& w, void* const* out, const Traj& tr, int B,
-           int T, int ep_len, unsigned seed, const float* c, int G, int smem, cudaStream_t s) {
+           int T, int ep_len, unsigned seed, unsigned lane0, const float* c, int G, int smem,
+           cudaStream_t s) {
   if (smem != Dims<n, E>::SMEM || G < 1) return (int)cudaErrorInvalidValue;
   const cudaError_t err = set_smem<n, E>();
   if (err != cudaSuccess) return (int)err;
   fused_collect_kernel<n, E><<<G, NT, smem, s>>>(
       (const float*)in[0], (const float*)in[1], (const float*)in[2], (const float*)in[3],
       (const int*)in[4], w, (float*)out[0], (float*)out[1], (float*)out[2], (float*)out[3],
-      (int*)out[4], tr, B, T, ep_len, seed, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]);
+      (int*)out[4], tr, B, T, ep_len, seed, lane0, c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7]);
   return (int)cudaGetLastError();
 }
 
@@ -581,6 +586,8 @@ extern "C" int fused_collect_plan(int n, int E, int smem) {
 }
 
 // E envs a tile, G blocks, smem bytes a block: the wrapper's launch plan.
+// lane0: the global index of env 0 of this launch, which keys its draws (a
+// data-parallel rank's first env; 0 for a whole batch).
 extern "C" int fused_collect_launch(
     const void* ap, const void* av, const void* ishape, const void* ivel, const void* t,
     const void* aw1, const void* ab1, const void* aw2, const void* ab2, const void* aw3,
@@ -588,8 +595,8 @@ extern "C" int fused_collect_launch(
     const void* cb2, const void* cw3, const void* cb3, void* ap_out, void* av_out,
     void* is_out, void* iv_out, void* t_out, void* obs, void* act, void* logp, void* val,
     void* rew, void* done, int B, int n, int T, int ep_len, int E, int G, int smem,
-    unsigned seed, float sens, float dmin, float thresh2, float cf, float margin, float invk,
-    float keep, float dt, void* stream) {
+    unsigned seed, unsigned lane0, float sens, float dmin, float thresh2, float cf, float margin,
+    float invk, float keep, float dt, void* stream) {
   if (B == 0 || T == 0) return 0;
   const void* in[5] = {ap, av, ishape, ivel, t};
   void* out[5] = {ap_out, av_out, is_out, iv_out, t_out};
@@ -601,8 +608,8 @@ extern "C" int fused_collect_launch(
                    (unsigned char*)done};
   const float c[8] = {sens, dmin, thresh2, cf, margin, invk, keep, dt};
   cudaStream_t s = (cudaStream_t)stream;
-  if (n == 3 && E == 16) return launch<3, 16>(in, w, out, tr, B, T, ep_len, seed, c, G, smem, s);
-  if (n == 4 && E == 16) return launch<4, 16>(in, w, out, tr, B, T, ep_len, seed, c, G, smem, s);
-  if (n == 9 && E == 4) return launch<9, 4>(in, w, out, tr, B, T, ep_len, seed, c, G, smem, s);
+  if (n == 3 && E == 16) return launch<3, 16>(in, w, out, tr, B, T, ep_len, seed, lane0, c, G, smem, s);
+  if (n == 4 && E == 16) return launch<4, 16>(in, w, out, tr, B, T, ep_len, seed, lane0, c, G, smem, s);
+  if (n == 9 && E == 4) return launch<9, 4>(in, w, out, tr, B, T, ep_len, seed, lane0, c, G, smem, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,16 +15,24 @@ per step.  :meth:`step` adds the observation.
 The in-step auto-reset draws a fresh batch of episodes every step and picks
 it with ``torch.where`` where an episode ended, as the JAX package does.
 Branching on ``done.any()`` instead would wait for the device every step.
+
+Under a data-parallel mesh (``FormationEnv(..., mesh=...)``, see
+:mod:`gym_formation_tpu_torch.parallel`) the env's batch is the rank's rows
+of the global one, and every random draw (the episodes of a reset, the
+motor noise, ``sample_actions``) is made at the global shape and cut to the
+rank's rows, so that W ranks consume the generator as one process does.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import _device, spaces
+from .parallel.mesh import draw_rows, local_rows, size
 from .core.physics import _collide_subset, world_step
 from .core.types import EnvState, StepOut
 from .envs.scenario import Scenario
@@ -74,6 +82,8 @@ class FormationEnv:
         the five moves (noop, −x, +x, −y, +y).
       force_discrete_action: continuous actions snapped to a one-hot over
         the first ``dim_p`` entries (their argmax) before scaling.
+      mesh: a data-parallel mesh: the batch is this rank's rows, and the
+        draws are made at the global shape (None: one process).
     """
 
     def __init__(
@@ -84,6 +94,7 @@ class FormationEnv:
         discrete_action: bool = False,
         discrete_action_input: bool = False,
         force_discrete_action: bool = False,
+        mesh=None,
     ):
         self.scenario = scenario
         self.cfg = cfg = scenario.cfg
@@ -92,6 +103,7 @@ class FormationEnv:
         self.discrete_action = discrete_action
         self.discrete_action_input = discrete_action_input
         self.force_discrete_action = force_discrete_action
+        self.mesh = mesh
         n = cfg.n_agents
         self.num_agents = n
         self.world_length = cfg.world_length
@@ -149,8 +161,11 @@ class FormationEnv:
         return u * _device.const(self._sensitivity, u)[:, None], comm
 
     def reset_state(self, generator: torch.Generator, num_envs: int) -> EnvState:
-        """Fresh episodes, without observations."""
-        return self.scenario.pre_obs(self.scenario.reset(generator, num_envs))
+        """Fresh episodes, without observations.  Under a mesh ``num_envs``
+        is the rank's count: the episodes are drawn for all ranks' envs and
+        the rank's rows kept."""
+        state = self.scenario.reset(generator, num_envs * size(self.mesh))
+        return self.scenario.pre_obs(local_rows(state, self.mesh))
 
     def reset(self, generator: torch.Generator, num_envs: int) -> Tuple[EnvState, torch.Tensor]:
         """Fresh episodes and their initial observations [B, N, obs_dim]."""
@@ -168,7 +183,7 @@ class FormationEnv:
             u = torch.where(mask, scen.scripted_actions(state).to(u.dtype), u)
         pos, vel = world_step(
             state.pos, state.vel, u.to(state.pos.dtype), cfg,
-            generator if cfg.has_noise() else None,
+            generator if cfg.has_noise() else None, self.mesh,
         )
         if comm is None:
             c = torch.zeros_like(state.c)
@@ -216,12 +231,11 @@ class FormationEnv:
         """Uniform random joint actions [B, N, act_dim]: move indices
         [B, N, 1] in 0..4 under ``discrete_action_input``."""
         if self.discrete_action_input:
-            return torch.randint(0, 5, (num_envs, self.num_agents, 1), generator=generator,
-                                 device=generator.device)
-        u = torch.rand(
-            (num_envs, self.num_agents, self.act_dim),
-            generator=generator, device=generator.device, dtype=self.scenario.dtype,
-        )
+            return draw_rows(lambda s: torch.randint(0, 5, s, generator=generator, device=generator.device),
+                             (num_envs, self.num_agents, 1), self.mesh)
+        u = draw_rows(lambda s: torch.rand(s, generator=generator, device=generator.device,
+                                           dtype=self.scenario.dtype),
+                      (num_envs, self.num_agents, self.act_dim), self.mesh)
         return (u * 2.0 - 1.0) * self.cfg.u_range
 
 
@@ -479,6 +493,34 @@ def rollout_statepolicy_fused(
     haus, ncoll = reward_sym.hd_reward_stats_sym(prev_pos, prev_ishape, thresh=thresh)
     rewards.append(finalize(haus, ncoll, prev_velterm))
     return state, torch.stack(rewards[1:])
+
+
+def rollout_statepolicy_fused_sharded(
+    env: FormationEnv,
+    state_policy_fn: Optional[Callable],
+    state: EnvState,
+    generator: torch.Generator,
+    length: int,
+    mesh,
+    **kw,
+):
+    """:func:`rollout_statepolicy_fused` on this rank's rows of a batch
+    split over the data-parallel ``mesh``: ``state`` is the rank's rows
+    (:func:`~gym_formation_tpu_torch.parallel.shard_batch` of the global
+    state), the auto-reset's episodes are drawn at the global shape and cut
+    to the rank's rows, and K3 and the masked K2 run on the rank's envs.
+    Every rank calls it with the same generator state; an external
+    ``state_policy_fn`` that draws makes its draws at the global shape too
+    (:func:`~gym_formation_tpu_torch.parallel.mesh.draw_rows`).
+
+    Returns the rank's ``(state, rewards [T, B/W])``;
+    :func:`~gym_formation_tpu_torch.parallel.host_local_to_global` gathers
+    them into what :func:`rollout_statepolicy_fused` returns for the whole
+    batch in one process.  Nothing is traced, so there is nothing to cache
+    between calls."""
+    sharded = copy.copy(env)
+    sharded.mesh = mesh
+    return rollout_statepolicy_fused(sharded, state_policy_fn, state, generator, length, **kw)
 
 
 def make_receptor_locations(receptor_type: str = "polar") -> np.ndarray:

@@ -35,6 +35,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import draw_rows
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -463,10 +465,11 @@ def onehot_from_logits(logits: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.one_hot(logits.argmax(-1), logits.shape[-1]).to(logits.dtype)
 
 
-def gumbel(generator: torch.Generator, shape, dtype: torch.dtype, device) -> torch.Tensor:
+def gumbel(generator: torch.Generator, shape, dtype: torch.dtype, device, mesh=None) -> torch.Tensor:
     """Standard Gumbel noise ``-log(-log(u))``, ``u`` uniform on [tiny, 1)
-    (``jax.random.gumbel``'s range)."""
-    u = torch.rand(shape, generator=generator, dtype=dtype, device=device)
+    (``jax.random.gumbel``'s range); under a data-parallel ``mesh`` drawn at
+    the global batch's shape and cut to the rank's rows."""
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, dtype=dtype, device=device), shape, mesh)
     return -torch.log(-torch.log(u.clamp_min(torch.finfo(dtype).tiny)))
 
 
@@ -488,10 +491,12 @@ def categorical_entropy(logits: torch.Tensor) -> torch.Tensor:
     return -(torch.exp(logp) * logp).sum(-1)
 
 
-def categorical_sample(generator: torch.Generator, logits: torch.Tensor) -> torch.Tensor:
+def categorical_sample(generator: torch.Generator, logits: torch.Tensor, mesh=None) -> torch.Tensor:
     """A one-hot sample over the last axis (Gumbel-max, as
-    ``jax.random.categorical`` draws)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device, dtype=logits.dtype)
+    ``jax.random.categorical`` draws); the draws at the global batch's
+    shape under a data-parallel ``mesh``."""
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=logits.device, dtype=logits.dtype),
+                  logits.shape, mesh)
     gumbel = -torch.log(-torch.log(u))
     return onehot_from_logits(logits + gumbel)
 
@@ -506,8 +511,12 @@ def gaussian_entropy(log_std: torch.Tensor) -> torch.Tensor:
     return (log_std + 0.5 * math.log(2 * math.pi * math.e)).sum(-1)
 
 
-def gaussian_sample(generator: torch.Generator, mean: torch.Tensor, log_std: torch.Tensor) -> torch.Tensor:
-    noise = torch.randn(mean.shape, generator=generator, device=mean.device, dtype=mean.dtype)
+def gaussian_sample(generator: torch.Generator, mean: torch.Tensor, log_std: torch.Tensor,
+                    mesh=None) -> torch.Tensor:
+    """``mean + σ·ε``; the normals at the global batch's shape under a
+    data-parallel ``mesh``."""
+    noise = draw_rows(lambda s: torch.randn(s, generator=generator, device=mean.device, dtype=mean.dtype),
+                      mean.shape, mesh)
     return mean + torch.exp(log_std) * noise
 
 

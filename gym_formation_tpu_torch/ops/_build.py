@@ -57,9 +57,9 @@ SIGNATURES = {
     "rn_fast_check_launch": (_I, ctypes.c_ulonglong, ctypes.c_ulonglong, _P, _P),
     # ap, av, ishape, ivel, t (in), 7 actor + 6 critic operands, ap, av,
     # ishape, ivel, t (out), obs, act, logp, value, reward, done, B, n, T,
-    # ep_len, E, G, smem, seed, sens, dmin, thresh2, cf, margin, invk, keep,
-    # dt, stream
-    "fused_collect_launch": (_P,) * 29 + (_I,) * 7 + (_U,) + (_F,) * 8 + (_P,),
+    # ep_len, E, G, smem, seed, lane0 (the global index of env 0), sens,
+    # dmin, thresh2, cf, margin, invk, keep, dt, stream
+    "fused_collect_launch": (_P,) * 29 + (_I,) * 7 + (_U,) * 2 + (_F,) * 8 + (_P,),
     # n, E, smem -> K5's blocks an SM
     "fused_collect_plan": (_I, _I, _I),
     # obs, act, lpo, adv, vold, tgt, 7 actor + 6 critic operands, part_a,

@@ -10,7 +10,10 @@ ValueCritic on their concatenation, sample the actions by Box–Muller from the
 murmur3 counter PRNG, step the point-mass physics among the agents, take the
 shared Hausdorff + velocity + collision reward, and auto-reset at the time
 limit.  The trajectory holds what the PPO update reads: obs, action, logp,
-value, reward, done.  The random bits are the JAX kernel's, bit for bit.
+value, reward, done.  The random bits are the JAX kernel's, bit for bit:
+each draw is keyed by the env's index, plus ``env_offset`` where a launch
+holds a data-parallel rank's envs (its first env's global index), so that a
+rank draws what one launch over the whole batch draws for those envs.
 
 :func:`fused_collect_hd` is the wrapper: a CUDA tensor launches the kernel, a
 CPU tensor takes :func:`fused_collect_hd_plain`.  ``launches`` counts kernel
@@ -203,6 +206,7 @@ def fused_collect_hd_plain(
     contact_margin: float = 1e-3,
     damping: float = 0.25,
     dt: float = 0.1,
+    env_offset: int = 0,
 ) -> Tuple[SoAState, Dict[str, torch.Tensor]]:
     """Plain PyTorch version of K5 (float32); arguments and results as
     :func:`fused_collect_hd`."""
@@ -221,7 +225,7 @@ def fused_collect_hd_plain(
     ivx, ivy = f32(soa.ivel[0]), f32(soa.ivel[1])
     t = soa.t[0].to(torch.int32)
     fn = torch.full((), float(n), dtype=torch.float32, device=dev)
-    lane = torch.arange(B, device=dev)
+    lane = torch.arange(env_offset, env_offset + B, device=dev)
     R = range(n)
     traj: Dict[str, List[torch.Tensor]] = {k: [] for k in ("obs", "action", "logp", "value", "reward", "done")}
     for it in range(length):
@@ -319,18 +323,21 @@ def fused_collect_hd(
     contact_margin: float = 1e-3,
     damping: float = 0.25,
     dt: float = 0.1,
+    env_offset: int = 0,
 ) -> Tuple[SoAState, Dict[str, torch.Tensor]]:
     """Run ``length`` fused collection steps of every env.
 
     ``soa`` holds the state planes, ``actor_ops`` / ``critic_ops`` the
     operands of :func:`actor_planes` / :func:`critic_planes`, ``seed`` keys
-    the counter PRNG.  Returns ``(SoAState', traj)`` with traj batch-second:
+    the counter PRNG, ``env_offset`` is the global index of env 0 (a
+    data-parallel rank's first env; the draws of env b are keyed by
+    ``env_offset + b``).  Returns ``(SoAState', traj)`` with traj batch-second:
     obs [T, B, n, 6n], action [T, B, n, 2], logp [T, B, n], value and reward
     [T, B] (float32), done [T, B] (bool).  On the card, n must be one of
     :data:`KERNEL_AGENTS` and the hidden widths 64."""
     kw = dict(length=length, ep_len=ep_len, n=n, sensitivity=sensitivity, agent_size=agent_size,
               coll_factor=coll_factor, contact_force=contact_force,
-              contact_margin=contact_margin, damping=damping, dt=dt)
+              contact_margin=contact_margin, damping=damping, dt=dt, env_offset=env_offset)
     if not _device.use_kernel(soa.ap):
         return fused_collect_hd_plain(soa, actor_ops, critic_ops, seed, **kw)
     if n not in KERNEL_AGENTS:
@@ -360,13 +367,15 @@ def fused_collect_hd(
     c = _consts(sensitivity, agent_size, coll_factor, contact_force, contact_margin, damping, dt)
     E, smem = launch_plan(n)
     G = grid_blocks(B, E, _blocks_per_sm(n, dev.index), torch.cuda.get_device_properties(dev).multi_processor_count)
-    rc = _build.lib().fused_collect_launch(
-        *(x.data_ptr() for x in soa), *(w.data_ptr() for w in actor_ops), *(w.data_ptr() for w in critic_ops),
-        *(x.data_ptr() for x in out), *(traj[k].data_ptr() for k in ("obs", "action", "logp", "value", "reward", "done")),
-        B, n, T, int(ep_len), E, G, smem, int(seed) & _M32,
-        c["sens"], c["dmin"], c["thresh2"], c["cf"], c["margin"], c["invk"], c["keep"], c["dt"],
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _build.lib().fused_collect_launch(
+            *(x.data_ptr() for x in soa), *(w.data_ptr() for w in actor_ops), *(w.data_ptr() for w in critic_ops),
+            *(x.data_ptr() for x in out),
+            *(traj[k].data_ptr() for k in ("obs", "action", "logp", "value", "reward", "done")),
+            B, n, T, int(ep_len), E, G, smem, int(seed) & _M32, int(env_offset) & _M32,
+            c["sens"], c["dmin"], c["thresh2"], c["cf"], c["margin"], c["invk"], c["keep"], c["dt"],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "fused_collect")
     global launches
     launches += 1

@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -113,6 +113,7 @@ def fused_ppo_grads_plain(
     clip_eps: float,
     huber_delta: float,
     value_coef: float,
+    global_rows: Optional[int] = None,
 ):
     """Plain PyTorch version of K9 (float32); arguments and results as
     :func:`fused_ppo_grads`."""
@@ -121,6 +122,7 @@ def fused_ppo_grads_plain(
     aw1, ab1, aw2, ab2, aw3, ab3, als = (f(t) for t in actor_ops)
     cw1, cb1, cw2, cb2, cw3, cb3 = (f(t) for t in critic_ops)
     Ma, M = r["xa"].shape[0], r["xc"].shape[0]
+    Mg = M if global_rows is None else int(global_rows)
 
     # actor
     h1 = torch.relu(r["xa"] @ aw1 + ab1)
@@ -136,7 +138,7 @@ def fused_ppo_grads_plain(
     t2 = ratio.clamp(1.0 - clip_eps, 1.0 + clip_eps) * adv
     # min's gradient to t1 where t1 < t2, else to t2 (zero outside the clip)
     through = (t1 < t2) | ((ratio > 1.0 - clip_eps) & (ratio < 1.0 + clip_eps))
-    dratio = torch.where(through, -adv * (1.0 / Ma), torch.zeros_like(adv))
+    dratio = torch.where(through, -adv * (1.0 / (Mg * n_agents)), torch.zeros_like(adv))
     dlogp = torch.where(delta.abs() < 20.0, dratio * ratio, torch.zeros_like(ratio))
     g_mu = dlogp[:, None] * (z * inv_std)
     dals = (dlogp[:, None] * (z * z - 1.0)).sum(0)
@@ -158,7 +160,7 @@ def fused_ppo_grads_plain(
     l1, l2 = huber(e1), huber(e2)
     # max's gradient to l1 where l1 > l2, else to l2 (zero outside the clip)
     d2 = torch.where(dv_raw.abs() < clip_eps, e2.clamp(-huber_delta, huber_delta), torch.zeros_like(e2))
-    dv = torch.where(l1 > l2, e1.clamp(-huber_delta, huber_delta), d2) * (value_coef * (1.0 / M))
+    dv = torch.where(l1 > l2, e1.clamp(-huber_delta, huber_delta), d2) * (value_coef * (1.0 / Mg))
     gc = _backward(r["xc"], cw1, cb1, cw2, cb2, cw3, dv[:, None], k1, k2)
 
     met = torch.stack([-torch.minimum(t1, t2).sum(), torch.maximum(l1, l2).sum(), (r["lpo"] - logp).sum()])
@@ -175,6 +177,7 @@ def fused_ppo_grads(
     clip_eps: float,
     huber_delta: float,
     value_coef: float,
+    global_rows: Optional[int] = None,
 ):
     """One epoch's PPO gradients.
 
@@ -187,9 +190,14 @@ def fused_ppo_grads(
     Returns ``(actor grads, critic grads, metric sums [3])``, the gradients
     in the operands' shapes (the log-std's without the entropy term) and the
     sums of ``-min(t1, t2)``, ``max(l1, l2)`` and ``logp_old - logp``.  On the
-    card the operands are contiguous float32 and ``A`` is 1 or 2."""
+    card the operands are contiguous float32 and ``A`` is 1 or 2.
+
+    ``global_rows``: the sample count the losses average over, where the
+    batch is a data-parallel rank's share of it (default: ``M``, this
+    batch's).  The gradients are then this rank's share of the global
+    batch's, and their sum over the ranks is the single process's."""
     kw = dict(n_agents=n_agents, act_dim=act_dim, clip_eps=clip_eps, huber_delta=huber_delta,
-              value_coef=value_coef)
+              value_coef=value_coef, global_rows=global_rows)
     obs = data["obs"]
     if not _device.use_kernel(obs):
         return fused_ppo_grads_plain(data, actor_ops, critic_ops, **kw)
@@ -198,6 +206,7 @@ def fused_ppo_grads(
     dev = obs.device
     M, N, do = obs.shape
     Ma, dc, A, H = M * N, N * do, act_dim, HIDDEN
+    Mg = M if global_rows is None else int(global_rows)
     if not 1 <= A <= 2:
         raise ValueError(f"K9 is built for act_dim 1 or 2, got {A}")
     shapes = [(do, H), (H,), (H, H), (H,), (H, A), (A,), (A,),
@@ -223,13 +232,14 @@ def fused_ppo_grads(
     part_a = torch.empty((Ga + 1, Pa), dtype=torch.float32, device=dev)
     part_c = torch.empty((Gc + 1, Pc), dtype=torch.float32, device=dev)
     out_a, out_c = part_a[Ga], part_c[Gc]
-    rc = _build.lib().fused_ppo_grad_launch(
-        *(r[k].data_ptr() for k in ("xa", "act", "lpo", "adv", "vold", "tgt")),
-        *(w.data_ptr() for w in actor_ops), *(w.data_ptr() for w in critic_ops),
-        part_a.data_ptr(), part_c.data_ptr(),
-        Ma, M, do, dc, A, Ga, Gc, Sa, Sc, float(clip_eps), float(huber_delta), float(value_coef),
-        1.0 / Ma, 1.0 / M, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        rc = _build.lib().fused_ppo_grad_launch(
+            *(r[k].data_ptr() for k in ("xa", "act", "lpo", "adv", "vold", "tgt")),
+            *(w.data_ptr() for w in actor_ops), *(w.data_ptr() for w in critic_ops),
+            part_a.data_ptr(), part_c.data_ptr(),
+            Ma, M, do, dc, A, Ga, Gc, Sa, Sc, float(clip_eps), float(huber_delta), float(value_coef),
+            1.0 / (Mg * N), 1.0 / Mg, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(rc, "fused_ppo_grad")
     global launches
     launches += 1

@@ -389,12 +389,13 @@ def fused_rollout_hd(
     dev = soa.ap.device
     grid = grid_blocks(B, G * (threads // 32), _blocks_per_sm(n, dev.index),
                        torch.cuda.get_device_properties(dev).multi_processor_count)
-    rc = _build.lib().fused_rollout_launch(
-        *(t.data_ptr() for t in soa), *(t.data_ptr() for t in out), rew.data_ptr(),
-        B, n, int(length), int(ep_len), G, threads, grid, int(seed) & _M32,
-        c["sens"], c["dmin"], c["thresh2"], c["cf"], c["margin"], c["invk"], c["keep"], c["dt"],
-        torch.cuda.current_stream(soa.ap.device).cuda_stream,
-    )
+    with torch.cuda.device(soa.ap.device):
+        rc = _build.lib().fused_rollout_launch(
+            *(t.data_ptr() for t in soa), *(t.data_ptr() for t in out), rew.data_ptr(),
+            B, n, int(length), int(ep_len), G, threads, grid, int(seed) & _M32,
+            c["sens"], c["dmin"], c["thresh2"], c["cf"], c["margin"], c["invk"], c["keep"], c["dt"],
+            torch.cuda.current_stream(soa.ap.device).cuda_stream,
+        )
     _build.check(rc, "fused_rollout")
     global launches
     launches += 1

@@ -158,17 +158,18 @@ def fused_hd_step(
     haus = torch.empty(B, dtype=torch.float32, device=apos.device)
     ncoll = torch.empty(B, N, dtype=torch.float32, device=apos.device)
     p = pairforce_sym._params(cfg)
-    rc = _build.lib().fused_step_launch(
-        apos.data_ptr(), avel.data_ptr(),
-        None if bfs else aforce.data_ptr(), ishape.data_ptr(),
-        ideal_vel.data_ptr() if bfs else None,
-        npos.data_ptr(), nvel.data_ptr(), haus.data_ptr(), ncoll.data_ptr(),
-        B, N, apos.stride(0), avel.stride(0), bfs_L or 0, int(stats == "post"),
-        p["k"], p["invk"], p["cf"], p["dmin"], float(thresh) * float(thresh),
-        float(1.0 - cfg.damping), float(cfg.dt / cfg.mass[0]), float(cfg.dt),
-        float("inf") if ms is None else ms, float(act_scale or 0.0),
-        torch.cuda.current_stream(apos.device).cuda_stream,
-    )
+    with torch.cuda.device(apos.device):
+        rc = _build.lib().fused_step_launch(
+            apos.data_ptr(), avel.data_ptr(),
+            None if bfs else aforce.data_ptr(), ishape.data_ptr(),
+            ideal_vel.data_ptr() if bfs else None,
+            npos.data_ptr(), nvel.data_ptr(), haus.data_ptr(), ncoll.data_ptr(),
+            B, N, apos.stride(0), avel.stride(0), bfs_L or 0, int(stats == "post"),
+            p["k"], p["invk"], p["cf"], p["dmin"], float(thresh) * float(thresh),
+            float(1.0 - cfg.damping), float(cfg.dt / cfg.mass[0]), float(cfg.dt),
+            float("inf") if ms is None else ms, float(act_scale or 0.0),
+            torch.cuda.current_stream(apos.device).cuda_stream,
+        )
     _build.check(rc, "fused_step")
     global launches
     launches += 1

@@ -125,11 +125,12 @@ def collision_forces_batched(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
         raise ValueError(f"K6 holds at most {MAX_ENTITIES} entities per env, got {E}")
     ent = _entity_vectors(cfg, pos)
     force = torch.empty_like(pos)
-    rc = _build.lib().pairforce_launch(
-        pos.data_ptr(), ent.data_ptr(), force.data_ptr(), B, E,
-        float(cfg.contact_margin), float(cfg.contact_force),
-        torch.cuda.current_stream(pos.device).cuda_stream,
-    )
+    with torch.cuda.device(pos.device):
+        rc = _build.lib().pairforce_launch(
+            pos.data_ptr(), ent.data_ptr(), force.data_ptr(), B, E,
+            float(cfg.contact_margin), float(cfg.contact_force),
+            torch.cuda.current_stream(pos.device).cuda_stream,
+        )
     _build.check(rc, "pairforce")
     global launches
     launches += 1

@@ -202,12 +202,13 @@ def collision_forces_culled(
         raise ValueError("K8 takes pairs as an int32 [B] tensor on the card")
     ent = pairforce._entity_vectors(cfg, pos)
     force = torch.empty_like(pos)
-    rc = _build.lib().pairforce_cull_launch(
-        pos.data_ptr(), ent.data_ptr(), force.data_ptr(),
-        None if pairs is None else pairs.data_ptr(), B, E,
-        float(cfg.contact_margin), float(cfg.contact_force), _cell_width(cfg),
-        torch.cuda.current_stream(pos.device).cuda_stream,
-    )
+    with torch.cuda.device(pos.device):
+        rc = _build.lib().pairforce_cull_launch(
+            pos.data_ptr(), ent.data_ptr(), force.data_ptr(),
+            None if pairs is None else pairs.data_ptr(), B, E,
+            float(cfg.contact_margin), float(cfg.contact_force), _cell_width(cfg),
+            torch.cuda.current_stream(pos.device).cuda_stream,
+        )
     _build.check(rc, "pairforce_cull")
     global launches
     launches += 1

@@ -81,11 +81,12 @@ def collision_forces_sym(pos: torch.Tensor, cfg: WorldCfg) -> torch.Tensor:
     if E > MAX_ENTITIES:
         raise ValueError(f"K1 holds at most {MAX_ENTITIES} entities per env, got {E}")
     force = torch.empty_like(pos)
-    rc = _build.lib().pairforce_sym_launch(
-        pos.data_ptr(), force.data_ptr(), B, E,
-        p["k"], p["invk"], p["cf"], p["dmin"],
-        torch.cuda.current_stream(pos.device).cuda_stream,
-    )
+    with torch.cuda.device(pos.device):
+        rc = _build.lib().pairforce_sym_launch(
+            pos.data_ptr(), force.data_ptr(), B, E,
+            p["k"], p["invk"], p["cf"], p["dmin"],
+            torch.cuda.current_stream(pos.device).cuda_stream,
+        )
     _build.check(rc, "pairforce_sym")
     global launches
     launches += 1

@@ -67,11 +67,12 @@ def hd_reward_stats_batched(
         raise ValueError(f"K7 holds at most {MAX_AGENTS} agents per env, got {N}")
     haus = torch.empty(B, dtype=torch.float32, device=apos.device)
     ncoll = torch.empty(B, N, dtype=torch.float32, device=apos.device)
-    rc = _build.lib().reward_launch(
-        apos.data_ptr(), ishape.data_ptr(), haus.data_ptr(), ncoll.data_ptr(),
-        B, N, tile_side(N), _smem_bytes(N), float(thresh) * float(thresh),
-        torch.cuda.current_stream(apos.device).cuda_stream,
-    )
+    with torch.cuda.device(apos.device):
+        rc = _build.lib().reward_launch(
+            apos.data_ptr(), ishape.data_ptr(), haus.data_ptr(), ncoll.data_ptr(),
+            B, N, tile_side(N), _smem_bytes(N), float(thresh) * float(thresh),
+            torch.cuda.current_stream(apos.device).cuda_stream,
+        )
     _build.check(rc, "reward")
     global launches
     launches += 1

@@ -152,11 +152,12 @@ def hd_reward_stats_sym(
         ptrs = (mask.data_ptr(), h_fb.data_ptr(), nc_fb.data_ptr())
     haus = torch.empty(B, dtype=torch.float32, device=apos.device)
     ncoll = torch.empty(B, N, dtype=torch.float32, device=apos.device)
-    rc = _build.lib().reward_sym_launch(
-        apos.data_ptr(), ishape.data_ptr(), *ptrs, haus.data_ptr(), ncoll.data_ptr(),
-        B, N, tile_side(N), _smem_bytes(N), float(thresh) * float(thresh),
-        torch.cuda.current_stream(apos.device).cuda_stream,
-    )
+    with torch.cuda.device(apos.device):
+        rc = _build.lib().reward_sym_launch(
+            apos.data_ptr(), ishape.data_ptr(), *ptrs, haus.data_ptr(), ncoll.data_ptr(),
+            B, N, tile_side(N), _smem_bytes(N), float(thresh) * float(thresh),
+            torch.cuda.current_stream(apos.device).cuda_stream,
+        )
     _build.check(rc, "reward_sym")
     global launches
     launches += 1

@@ -569,6 +569,51 @@ def test_k5_is_deterministic(dev, n, B):
         assert torch.equal(t1[k], t2[k]), k
 
 
+@pytest.mark.parametrize("n,B,off", [(3, 2048, 2048), (9, 37, 1100)])
+def test_k5_env_offset_matches_plain(dev, n, B, off):
+    """K5 over a data-parallel rank's envs (its draws keyed from
+    ``env_offset``) against its plain version at the same offset, with the
+    gates of test_k5_matches_plain_across_resets; and bit for bit with
+    rows [off, off + B) of one launch over off + B envs."""
+    k5, soa, aops, cops = _k5_pair(dev, n, off + B, 3)
+    part = soa._replace(**{f: getattr(soa, f)[:, off:].contiguous() for f in soa._fields})
+    kw = dict(length=25, ep_len=10, n=n)
+    s_k, tr_k = k5.fused_collect_hd(part, aops, cops, 4, env_offset=off, **kw)
+    s_p, tr_p = k5.fused_collect_hd_plain(part, aops, cops, 4, env_offset=off, **kw)
+    for name in ("ap", "av", "ishape", "ivel"):
+        torch.testing.assert_close(getattr(s_k, name), getattr(s_p, name), atol=1e-5, rtol=0)
+    for name in ("obs", "action", "logp", "value", "reward"):
+        torch.testing.assert_close(tr_k[name], tr_p[name], atol=1e-4, rtol=1e-5)
+    assert torch.equal(s_k.t, s_p.t) and torch.equal(tr_k["done"], tr_p["done"])
+    assert bool(tr_k["done"].any(0).all())
+    _, whole = k5.fused_collect_hd(soa, aops, cops, 4, **kw)
+    for k in tr_k:
+        assert torch.equal(tr_k[k], whole[k][:, off:]), k
+
+
+def test_kernels_launch_on_their_tensors_card():
+    """With two cards or more, K1 and K5 on ``cuda:1`` while the current
+    device is 0: each launches on its tensors' card (the device guard) and
+    agrees with its plain version there."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from gym_formation_tpu_torch.ops.kernels import fused_collect as k5
+
+    d1 = torch.device("cuda", 1)
+    torch.cuda.set_device(0)
+    cfg = make_world_cfg(243, 0, agent_size=0.03)
+    pos = torch.as_tensor(np.random.RandomState(2).uniform(-1, 1, (64, 243, 2)), dtype=torch.float32, device=d1)
+    got = k1.collision_forces_sym(pos, cfg)
+    assert got.device == d1 and torch.cuda.current_device() == 0
+    torch.testing.assert_close(got, k1.collision_forces_sym_plain(pos, **k1._params(cfg)), atol=1e-3, rtol=1e-3)
+    _, soa, aops, cops = _k5_pair(d1, 3, 100, 4)
+    kw = dict(length=10, ep_len=6, n=3)
+    s_k, tr_k = k5.fused_collect_hd(soa, aops, cops, 4, **kw)
+    _, tr_p = k5.fused_collect_hd_plain(soa, aops, cops, 4, **kw)
+    assert tr_k["reward"].device == d1 and torch.cuda.current_device() == 0
+    torch.testing.assert_close(tr_k["reward"], tr_p["reward"], atol=1e-4, rtol=1e-5)
+
+
 def _k9_data(dev, num_envs, T=8, n=3):
     from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig
 
@@ -582,6 +627,36 @@ def _k9_data(dev, num_envs, T=8, n=3):
         es, obs, traj, _, last = collect(ts, es, obs, g)
     ts, data = algo._prepare(ts, traj, last)
     return algo, ts, data
+
+
+def test_k9_global_rows_matches_plain(dev):
+    """K9 over half a batch with the whole batch's sample count (a
+    data-parallel rank's share) against its plain version, and the two
+    halves' sum against the whole batch's gradient (rtol 2e-3, atol 2e-6)."""
+    from gym_formation_tpu_torch.ops.kernels import fused_ppo_grad as k9
+
+    algo, ts, data = _k9_data(dev, 512)
+    f = lambda t: t.detach().float().contiguous()
+    (a1, a2), (c1, c2) = ts.actor.mlp.layers, ts.critic.mlp.layers
+    aops = (f(a1.weight.T), f(a1.bias), f(a2.weight.T), f(a2.bias), f(ts.actor.head.weight.T),
+            f(ts.actor.head.bias), f(ts.actor.bounded_log_std()))
+    cops = (f(c1.weight.T), f(c1.bias), f(c2.weight.T), f(c2.bias), f(ts.critic.head.weight.T),
+            f(ts.critic.head.bias))
+    sub = {k: data[k] for k in ("obs", "action", "logp", "adv", "value", "target")}
+    M = sub["obs"].shape[0]
+    kw = dict(n_agents=3, act_dim=2, clip_eps=0.2, huber_delta=10.0, value_coef=1.0)
+    whole = k9.fused_ppo_grads(sub, aops, cops, **kw)
+    halves = []
+    for sl in (slice(0, M // 2), slice(M // 2, M)):
+        part = {k: v[sl].contiguous() for k, v in sub.items()}
+        got = k9.fused_ppo_grads(part, aops, cops, global_rows=M, **kw)
+        want = k9.fused_ppo_grads_plain(part, aops, cops, global_rows=M, **kw)
+        for x, y in zip(got[0] + got[1], want[0] + want[1]):
+            torch.testing.assert_close(x, y, rtol=2e-3, atol=2e-6)
+        halves.append(got)
+    for i, w in enumerate(whole[0] + whole[1]):
+        a, b = ((h[0] + h[1])[i] for h in halves)
+        torch.testing.assert_close(a + b, w, rtol=2e-3, atol=2e-6)
 
 
 # n = 5, 6, 7 give the critic rows of 150, 216 and 294 floats: dW1 in
@@ -1166,7 +1241,7 @@ def test_render_of_card_state_equals_cpu(dev):
     from gym_formation_tpu_torch.render import render_state, render_state_per_agent
 
     scen = gt.make_scenario("formation_hd_env", num_agents=27)
-    card, cpu = compat.host_reset(scen, 4, device=dev), compat.host_reset(scen, 4)
+    card, cpu = compat.host_reset(scen, 4, device=dev), compat.host_reset(scen, 4, device="cpu")
     np.testing.assert_array_equal(render_state(scen, card, size=120), render_state(scen, cpu, size=120))
     for a, b in zip(render_state_per_agent(scen, card, size=40), render_state_per_agent(scen, cpu, size=40)):
         np.testing.assert_array_equal(a, b)

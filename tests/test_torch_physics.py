@@ -2,6 +2,7 @@
 pair-force kernel K1's plain version, held against the JAX package on the
 same numpy inputs."""
 
+import contextlib
 import dataclasses
 import os
 import subprocess
@@ -167,7 +168,8 @@ def fake_card(monkeypatch):
     library is a stub whose launchers record their names and return 0.
     The wrappers' launch counters are restored after the test, so that the
     simulated launches do not reach a later test of the process.  Returns
-    the list of launcher names called."""
+    the list of launcher names called (each under a stub of
+    ``torch.cuda.device``, the wrappers' device guard)."""
     calls = []
 
     class _Lib:
@@ -180,6 +182,8 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(_device, "use_kernel", lambda t: True)
     monkeypatch.setattr(_build, "lib", lambda: _Lib())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type("S", (), {"cuda_stream": 0})())
+    # each wrapper launches under its tensors' device
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     return calls
 
 

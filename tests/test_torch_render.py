@@ -25,7 +25,7 @@ SCENARIOS = [("formation_hd_env", 4), ("basic_formation_env", 3), ("formation_hd
 def pair(name, n, seed=3):
     jscen = ft.make_scenario(name, num_agents=n, dtype=jnp.float64)
     tscen = gt.make_scenario(name, num_agents=n, dtype=torch.float64)
-    return jscen, jcompat.host_reset(jscen, seed), tscen, tcompat.host_reset(tscen, seed)
+    return jscen, jcompat.host_reset(jscen, seed), tscen, tcompat.host_reset(tscen, seed, device="cpu")
 
 
 @pytest.mark.parametrize("name,n", SCENARIOS)

@@ -57,7 +57,7 @@ def _obs_rows(n, seed):
     """The N per-agent observations of one host_reset formation_hd state,
     in float64 (the same rows in both packages)."""
     scen = gt.make_scenario("formation_hd_env", num_agents=n, dtype=torch.float64)
-    st = tcompat.host_reset(scen, seed)
+    st = tcompat.host_reset(scen, seed, device="cpu")
     jscen = ft.make_scenario("formation_hd_env", num_agents=n, dtype=jnp.float64)
     jrows = np.asarray(jscen.observe(jscen.pre_obs(jcompat.host_reset(jscen, seed))))
     rows = scen.observe(scen.pre_obs(st))[0].numpy()
@@ -130,7 +130,7 @@ def test_throughput_matches_jax_under_one_clock(monkeypatch):
 def test_assert_finite_names_the_same_leaves_as_jax():
     jscen = ft.make_scenario("formation_hd_env", num_agents=3, dtype=jnp.float64)
     tscen = gt.make_scenario("formation_hd_env", num_agents=3, dtype=torch.float64)
-    jst, tst = jcompat.host_reset(jscen, 2), tcompat.host_reset(tscen, 2)
+    jst, tst = jcompat.host_reset(jscen, 2), tcompat.host_reset(tscen, 2, device="cpu")
     jax_tree = {"b": [np.array([1.0, np.nan]), 2.0, np.array([1, 2])], "a": jst.replace(vel=jst.vel.at[1, 0].set(np.inf))}
     vel = tst.vel.clone()
     vel[0, 1, 0] = float("inf")

@@ -131,7 +131,7 @@ def _pair_f64(benchmark=True, n=3, **kw):
 
 def _inject(jw, tw, seed):
     jw._state = jcompat.host_reset(jw._env.scenario, seed)
-    tw.state = tcompat.host_reset(tw._env.scenario, seed)
+    tw.state = tcompat.host_reset(tw._env.scenario, seed, device="cpu")
     assert tw.state.pos.dtype == torch.float64
 
 
