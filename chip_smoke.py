@@ -193,6 +193,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    unsharded run.  Prints the training env-steps/s of W=2 and W=1 and the
    collectives' ms an iteration (CUDA events) beside the card's name and
    power limit.
+41. Tensor parallel (gym_formation_tpu_torch.parallel.tensor, the 'model'
+   axis): a world of 2 processes on the one card (gloo) on the mesh
+   ``{'data': 1, 'model': 2}``, each rank holding its slices of the cut
+   parameters and their moments, against this process: MAPPO N=3 fused
+   (B=4096, 3 iterations; K5 on weights gathered whole once an iteration,
+   K9 once an epoch with its gradients cut to the rank's slices; phase
+   40's unsharded run), MAPPO N=243 structured (B=1024, one iteration of
+   one epoch; K1 and K2 once an env step; the critic's [354294, 64] first
+   kernel cut in two; the step's gradient within rtol 5e-3 and 1e-4 of its
+   largest entry, the parameters' spread reported), RMAPPO N=3 (B=128, 2
+   iterations; K1 and K2 once an env step) and MADDPG N=3 (B=32, 2
+   iterations; phase 40's unsharded run); N=3 parameters within rtol 5e-3
+   atol 5e-5, both ranks' replicated leaves bit for bit.  Prints each
+   rank's held parameter and moment bytes against the whole, the model
+   axis's collectives' calls and ms an iteration (CUDA events) and the
+   training env-steps/s of TP=2 and one process.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
@@ -1913,17 +1929,18 @@ def _dp_train(algo, mesh, g, iters, label):
     all_reduce calls and ms."""
     from gym_formation_tpu_torch import parallel
     from gym_formation_tpu_torch.parallel import mesh as dp
+    from gym_formation_tpu_torch.parallel import tensor
 
     kmods = _dp_kmods()
     state = algo.init(g)
-    parallel.replicate_global(state[0], mesh)
-    first = []
-    if hasattr(algo, "_apply"):  # MAPPO: keep the first optimizer step's (reduced) gradient
+    parallel.shard_params_(parallel.replicate_global(state[0], mesh), mesh)
+    first = []  # the first optimizer step's (reduced) gradient, the rank's slices
+    if hasattr(algo, "_apply"):  # MAPPO
         apply = algo._apply
 
         def keep_first(ts, grads):
             if not first:
-                first.extend(g_.detach().cpu().clone() for g_ in grads)
+                first.extend((g_.detach().clone(), p) for g_, p in zip(grads, ts.params()))
             apply(ts, grads)
 
         algo._apply = keep_first
@@ -1938,12 +1955,26 @@ def _dp_train(algo, mesh, g, iters, label):
         _dp_sync(mesh)
         walls.append(time.perf_counter() - t0)
         require(all(np.isfinite(v) for v in host.values()), f"{label}: non-finite metrics {host}")
-        ts = state[0]
-        nets = ([p for p in ts.params()] if hasattr(ts, "params") else
-                [p for f in ("actor", "critic") for p in getattr(ts, f).parameters()])
-        params.append([p.detach().cpu().clone() for p in nets])
-    return dict(params=params, walls=walls, counts=launch_counts(kmods), all_reduce=dp.stats["all_reduce"],
-                all_gather=dp.stats["all_gather"], collective_ms=dp.collective_ms(), first_grad=first)
+        params.append([p.detach().cpu().clone() for p in _dp_nets(state[0])])
+    model = ("model_all_gather", "model_all_reduce")
+    out = dict(walls=walls, counts=launch_counts(kmods), all_reduce=dp.stats["all_reduce"],
+               all_gather=dp.stats["all_gather"], collective_ms=dp.collective_ms(),
+               model_calls={k: dp.stats[k] for k in model}, model_ms=dp.collective_ms(model))
+    # on a model axis (after the counts): the rank's slices as held, then
+    # the last parameters and the first gradient gathered whole
+    ts, whole_ts = state[0], tensor.whole_state(state[0], mesh)
+    out["local"] = params[-1]
+    out["cut"] = [tensor.cut_of(p) is not None for p in _dp_nets(ts)]
+    out["held"], out["held_whole"] = tensor.held_bytes(ts), tensor.held_bytes(whole_ts)
+    params[-1] = [p.detach().cpu().clone() for p in _dp_nets(whole_ts)]
+    whole = lambda t, p: t if tensor.cut_of(p) is None else tensor.cut_of(p).whole(t)
+    return dict(out, params=params, first_grad=[whole(t, p).cpu() for t, p in first])
+
+
+def _dp_nets(ts):
+    """The parameters the data-parallel and tensor-parallel phases hold."""
+    return (list(ts.params()) if hasattr(ts, "params") else
+            [p for f in ("actor", "critic") for p in getattr(ts, f).parameters()])
 
 
 def dp_programs(mesh, dev):
@@ -2211,6 +2242,153 @@ def phase_data_parallel(dev, card):
           f"{nccl['collective_ms'] / 2:.3f} ms an iteration ({card})")
     print(f"data parallel phase: {time.perf_counter() - t_phase:.1f} s (gloo world {gloo_s:.1f} s, nccl world "
           f"{nccl_s:.1f} s, each with its processes' start)")
+    return ref
+
+
+TP_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_tp")
+TP_MAPPO_N243 = (1024, 1, dict(ppo_epochs=1))  # global B, iterations, config
+TP_RMAPPO = (128, 2)
+
+
+def tp_programs(mesh, dev, ref=None):
+    """The tensor-parallel phase's paths on this process: on ``mesh`` (a
+    model axis of 2) or, with ``ref`` (phase 40's unsharded runs), those
+    of them that phase 40 does not run."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig, make_algo
+
+    out = {}
+    g = torch.Generator(device=dev)
+    if ref is None:
+        B, iters = DP_MAPPO_N3
+        algo = MAPPO(gt.make_env("formation_hd_env", num_agents=3, mesh=mesh), MAPPOConfig(fused_update=True),
+                     num_envs=B, device=dev)
+        require(algo.fused_collect, "tensor parallel: the auto gate did not turn fused_collect on")
+        g.manual_seed(0)
+        out["mappo_n3"] = _dp_train(algo, mesh, g, iters, "tensor parallel MAPPO N=3")
+        B, iters = DP_MADDPG
+        algo = make_algo("maddpg", gt.make_env("formation_hd_env", num_agents=3), B, device=dev, mesh=mesh)
+        g.manual_seed(2)
+        out["maddpg"] = _dp_train(algo, mesh, g, iters, "tensor parallel MADDPG")
+    B, iters, cfg = TP_MAPPO_N243
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=243, mesh=mesh), MAPPOConfig(**cfg), num_envs=B,
+                 device=dev)
+    require(algo.structured_obs, "tensor parallel: N=243 MAPPO did not take the structured path")
+    g.manual_seed(1)
+    out["mappo_n243"] = _dp_train(algo, mesh, g, iters, "tensor parallel MAPPO N=243")
+    del algo
+    torch.cuda.empty_cache()
+    B, iters = TP_RMAPPO
+    algo = make_algo("rmappo", gt.make_env("formation_hd_env", num_agents=3), B, device=dev, mesh=mesh)
+    g.manual_seed(3)
+    out["rmappo"] = _dp_train(algo, mesh, g, iters, "tensor parallel RMAPPO")
+    return out
+
+
+def tp_world_rank(mesh, out_dir):
+    """A rank of the tensor-parallel phase's gloo world."""
+    from gym_formation_tpu_torch.parallel import tensor
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.save(tp_programs(mesh, dev), os.path.join(out_dir, f"rank{tensor.rank(mesh)}.pt"))
+
+
+def _tp_replicated_equal(ranks, key):
+    """Both ranks hold the same uncut leaves, bit for bit."""
+    a, b = ranks[0][key], ranks[1][key]
+    return all(torch.equal(x, y) for x, y, cut in zip(a["local"], b["local"], a["cut"], strict=True) if not cut)
+
+
+def _mb(n):
+    return f"{n / 1e6:.1f} MB"
+
+
+def phase_tensor_parallel(dev, card, dp_ref):
+    """The four paths in a world of 2 processes (gloo) on the one card on
+    the mesh {'data': 1, 'model': 2}, against this process's runs (phase
+    40's ``dp_ref`` where it has them)."""
+    import shutil
+
+    from gym_formation_tpu_torch import parallel
+
+    t_phase = time.perf_counter()
+    ref = dict(tp_programs(None, dev, dp_ref), mappo_n3=dp_ref["mappo_n3"], maddpg=dp_ref["maddpg"])
+    torch.cuda.empty_cache()
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    os.makedirs(TP_DIR)
+    t0 = time.perf_counter()
+    parallel.spawn(tp_world_rank, 2, (TP_DIR,), backend="gloo", device_type="cuda", tp=2)
+    world_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(TP_DIR, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    w = ranks[0]
+
+    def report(key, label, steps, launches):
+        res = w[key]
+        held, whole = res["held"], res["held_whole"]
+        for r, rank in enumerate(ranks):
+            require(rank[key]["held"] == held, f"tensor parallel {label}: rank {r} holds {rank[key]['held']}")
+        require(held["params"] < whole["params"] and held["moments"] < whole["moments"],
+                f"tensor parallel {label}: nothing cut ({held} of {whole})")
+        require(_tp_replicated_equal(ranks, key), f"tensor parallel {label}: the ranks' replicated leaves differ")
+        iters = len(res["walls"])
+        calls = res["model_calls"]
+        print(f"tensor parallel {label}: held a rank params {_mb(held['params'])} + moments "
+              f"{_mb(held['moments'])} = {_mb(held['params'] + held['moments'])} against "
+              f"{_mb(whole['params'] + whole['moments'])} whole; launches a rank {launches}; model axis "
+              f"all_gather {calls['model_all_gather'] / iters:.1f} and all_reduce "
+              f"{calls['model_all_reduce'] / iters:.1f} calls, {res['model_ms'] / iters:.3f} ms an iteration "
+              f"(CUDA events, rank 0); data axis all_reduce {res['all_reduce'] / iters:.1f} calls; training "
+              f"env-steps/s one process {_dp_rate(ref[key], steps):.1f}, TP=2 on one card (gloo) "
+              f"{_dp_rate(res, steps):.1f} ({card})")
+
+    # MAPPO N=3 fused: K5 on gathered weights, K9's gradients cut back
+    B, iters = DP_MAPPO_N3
+    err = _dp_close(w["mappo_n3"]["params"][-1], ref["mappo_n3"]["params"][-1], "tensor parallel MAPPO N=3")
+    grel = _dp_grad_close(w["mappo_n3"]["first_grad"], ref["mappo_n3"]["first_grad"],
+                          "tensor parallel MAPPO N=3 first gradient")
+    for r, rank in enumerate(ranks):
+        c = rank["mappo_n3"]["counts"]
+        require(c["fused_collect"] == iters and c["fused_ppo_grad"] == iters * 10,
+                f"tensor parallel MAPPO N=3 rank {r}: launches {c}")
+    c = w["mappo_n3"]["counts"]
+    print(f"tensor parallel MAPPO N=3 B={B} fused, {iters} iterations: parameters against the unsharded run max "
+          f"abs err {err:.3e} (rtol {DP_GATE['rtol']}, atol {DP_GATE['atol']}), the first step's gradient's "
+          f"{grel:.3e} of its largest entry")
+    report("mappo_n3", f"MAPPO N=3 B={B} fused", 25 * B, f"{c['fused_collect']} K5, {c['fused_ppo_grad']} K9")
+
+    # MAPPO N=243 structured: K1 and K2 once an env step; the critic's
+    # first kernel cut.  Held through the step's gradient, as phase 40
+    B, iters, _ = TP_MAPPO_N243
+    grel = _dp_grad_close(w["mappo_n243"]["first_grad"], ref["mappo_n243"]["first_grad"],
+                          "tensor parallel MAPPO N=243 gradient")
+    err, over = _dp_param_spread(w["mappo_n243"]["params"][-1], ref["mappo_n243"]["params"][-1])
+    require(err <= 2 * 7e-4 * iters, f"tensor parallel MAPPO N=243: parameters apart by {err:.3e}, more than "
+            f"sign flips of {iters} Adam step give")
+    for r, rank in enumerate(ranks):
+        c = rank["mappo_n243"]["counts"]
+        require(c["pairforce_sym"] == iters * 25 and c["reward_sym"] == iters * 25 and c["fused_collect"] == 0,
+                f"tensor parallel MAPPO N=243 rank {r}: launches {c}")
+    c = w["mappo_n243"]["counts"]
+    print(f"tensor parallel MAPPO N=243 structured B={B}, {iters} iteration of 1 epoch: the step's gradient within "
+          f"rtol 5e-3 (largest error {grel:.3e} of its largest entry); parameters max abs err {err:.3e}, "
+          f"{over:.3e} of them outside rtol 5e-3 atol 5e-5")
+    report("mappo_n243", f"MAPPO N=243 structured B={B}", 25 * B, f"{c['pairforce_sym']} K1, {c['reward_sym']} K2")
+
+    # RMAPPO N=3 and MADDPG N=3: K1 and K2 once an env step
+    for key, label, (B, iters), steps_per_iter in (("rmappo", "RMAPPO N=3", TP_RMAPPO, 25),
+                                                   ("maddpg", "MADDPG N=3", DP_MADDPG, 32)):
+        err = _dp_close(w[key]["params"][-1], ref[key]["params"][-1], f"tensor parallel {label}")
+        for r, rank in enumerate(ranks):
+            c = rank[key]["counts"]
+            require(c["pairforce_sym"] == iters * steps_per_iter and c["reward_sym"] == iters * steps_per_iter,
+                    f"tensor parallel {label} rank {r}: launches {c}")
+        c = w[key]["counts"]
+        print(f"tensor parallel {label} B={B}, {iters} iterations: parameters against the unsharded run max abs "
+              f"err {err:.3e} (rtol {DP_GATE['rtol']}, atol {DP_GATE['atol']})")
+        report(key, f"{label} B={B}", steps_per_iter * B, f"{c['pairforce_sym']} K1, {c['reward_sym']} K2")
+    print(f"tensor parallel phase: {time.perf_counter() - t_phase:.1f} s (the world {world_s:.1f} s with its "
+          f"processes' start)")
 
 
 def main() -> int:
@@ -2686,7 +2864,11 @@ def main() -> int:
 
     # -- 40. data parallel ----------------------------------------------------------
     phase("data parallel: K5 with an env offset, a gloo world of 2 and an nccl world of 1 on the one card")
-    phase_data_parallel(dev, smi.stdout.strip().splitlines()[0])
+    dp_ref = phase_data_parallel(dev, smi.stdout.strip().splitlines()[0])
+
+    # -- 41. tensor parallel ----------------------------------------------------------
+    phase("tensor parallel: a gloo world of 2 on the mesh {'data': 1, 'model': 2} on the one card")
+    phase_tensor_parallel(dev, smi.stdout.strip().splitlines()[0], dp_ref)
 
     # bounds from this run's shapes (see bound())
     B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]

@@ -39,7 +39,12 @@ advantage statistics and the value norm from global sums, each epoch's
 permutation over the global samples with every rank taking its rows of each
 minibatch, each rank's loss its share of the global mean, and one
 ``all_reduce`` of the flat gradient (and the metrics) before every
-optimizer step.  The parameters stay equal on every rank.
+optimizer step.  The parameters stay equal on every rank.  On a model axis
+(``--mesh DP,TP``) each rank holds its slices of the cut parameters and
+their moments (:mod:`gym_formation_tpu_torch.parallel.tensor`): the
+networks gather each cut layer's columns, the data-axis ``all_reduce``
+carries the rank's slices, and K5 and K9 take the weights gathered whole,
+K9's gradients cut back to the rank's slices.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import _device
 from ..env import FormationEnv, benchmark_means
 from ..parallel import mesh as dp
+from ..parallel import tensor as tp
 from ..models.networks import (
     GaussianActor,
     LogitsActor,
@@ -354,8 +360,10 @@ class MAPPO:
         assert scen.name == "formation_hd_env", scen.name
         assert self.env.auto_reset and not self.env.benchmark
         B, N = self.num_envs, self.n_agents
+        # the kernel takes whole weights: a model axis's slices gathered
         soa, traj = k5.fused_collect_hd(
-            state_to_soa(env_state), k5.actor_planes(ts.actor), k5.critic_planes(ts.critic),
+            state_to_soa(env_state), k5.actor_planes(tp.whole_module(ts.actor)),
+            k5.critic_planes(tp.whole_module(ts.critic)),
             self._next_seed(), length=self.cfg.rollout_len, ep_len=self.env.world_length, n=N,
             env_offset=dp.rank(self.mesh) * B,
         )
@@ -594,10 +602,12 @@ class MAPPO:
 
     def _fused_epoch_grads(self, ts: MAPPOState, data):
         """One epoch's (gradients in ``ts.params()`` order, metrics) by K9,
-        gradient-matched to autograd of :meth:`_loss`."""
+        gradient-matched to autograd of :meth:`_loss`.  On a model axis K9
+        takes the weights gathered whole, and each gradient is cut back to
+        the rank's slice."""
         cfg = self.cfg
         M = cfg.rollout_len * self.global_envs  # the samples the loss averages over
-        actor, critic = ts.actor, ts.critic
+        actor, critic = tp.whole_module(ts.actor), tp.whole_module(ts.critic)
         f = lambda t: t.detach().to(torch.float32).contiguous()
         (a1, a2), (c1, c2) = actor.mlp.layers, critic.mlp.layers
         ls_raw = actor.log_std.detach().requires_grad_(True)
@@ -629,8 +639,8 @@ class MAPPO:
             "mlp.layers.1.weight": gc[2].T, "mlp.layers.1.bias": gc[3],
             "head.weight": gc[4].T, "head.bias": gc[5],
         }
-        grads = [by_name[k].to(p.dtype) for k, p in actor.named_parameters()]
-        grads += [cby_name[k].to(p.dtype) for k, p in critic.named_parameters()]
+        grads = [tp.local_like(by_name[k], p).to(p.dtype) for k, p in ts.actor.named_parameters()]
+        grads += [tp.local_like(cby_name[k], p).to(p.dtype) for k, p in ts.critic.named_parameters()]
         N = self.n_agents
         metrics = {
             "pg_loss": met[0] / (M * N),

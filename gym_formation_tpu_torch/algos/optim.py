@@ -15,7 +15,10 @@ step for step:
 
 The optimizer holds no parameters: :meth:`ClipAdam.step` takes the parameter
 and gradient lists and the state ``(mu, nu, count)``, updates the
-parameters in place and returns the new state.
+parameters in place and returns the new state.  Under tensor parallelism a
+parameter cut over the model axis (:mod:`~..parallel.tensor`) comes with
+its slice's gradient and moments; Adam acts elementwise on them, and the
+clip's global norm sums the cut gradients' squares over the model axis.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Sequence
 
 import torch
+
+from ..parallel import tensor as tp
 
 
 class AdamState(NamedTuple):
@@ -40,17 +45,26 @@ class ClipAdam:
         zeros = lambda: [torch.zeros_like(p, memory_format=torch.contiguous_format) for p in params]
         return AdamState(mu=zeros(), nu=zeros(), count=0)
 
-    def clip(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    def clip(self, grads: Sequence[torch.Tensor], params: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
         """Global-norm clip.  The branch is taken on the device (no host
-        read of the norm)."""
-        g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        read of the norm).  Where ``params`` has parameters cut over the
+        model axis, their gradients' squares are summed over that axis by
+        one ``all_reduce`` and each replicated gradient's counted once."""
+        cuts = [tp.cut_of(p) for p in params]
+        mesh = next((c.mesh for c in cuts if c is not None), None)
+        if mesh is None:
+            g_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+        else:
+            whole = sum((g * g).sum() for g, c in zip(grads, cuts, strict=True) if c is None)
+            cut = sum((g * g).sum() for g, c in zip(grads, cuts) if c is not None)
+            g_norm = torch.sqrt(whole + tp.model_sum(cut, mesh))
         keep = g_norm < self.max_norm
         return [torch.where(keep, g, (g / g_norm.to(g.dtype)) * self.max_norm) for g in grads]
 
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], state: AdamState) -> AdamState:
         if self.max_norm is not None:
-            grads = self.clip(grads)
+            grads = self.clip(grads, params)
         b1, b2 = self.b1, self.b2
         count = state.count + 1
         mu = [(1 - b1) * g + b1 * m for g, m in zip(grads, state.mu)]

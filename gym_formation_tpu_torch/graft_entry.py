@@ -1,12 +1,13 @@
-"""A multi-process dry run of the training programs over a data-parallel mesh.
+"""A multi-process dry run of the training programs over a data × model mesh.
 
     python -m gym_formation_tpu_torch.graft_entry [N] [--device cpu]
 
 Counterpart of the JAX package's ``__graft_entry__.py: dryrun_multichip``:
 N ranks (default: every visible card; one card each with ``nccl``, or the
 CPU with ``gloo`` under ``--device cpu``) each run one training iteration of
-the three programs at its shapes, with the env batch split over the ranks
-(``dp = N``; the tensor-parallel half of the JAX mesh is not ported yet):
+the three programs at its shapes, on the JAX package's mesh: ``(N/2, 2)``
+for an even N (the env batch split over N/2 data ranks, the networks' wide
+layers over 2 model ranks), ``(N, 1)`` for an odd one:
 
 - MAPPO at N=9 agents: rollouts of 4 steps, 2 epochs of 2 minibatches;
 - MADDPG at N=9: a buffer of 256, 4 env steps and 2 updates of batches of
@@ -14,7 +15,7 @@ the three programs at its shapes, with the env batch split over the ranks
 - MAPPO at N=243 on the structured path: rollouts of 2 steps, 1 epoch,
   ``grad_accum=2``.
 
-Each runs at 4·N envs and checks finite losses (and the buffer's growth).
+Each runs at 4·DP envs and checks finite losses (and the buffer's growth).
 """
 
 from __future__ import annotations
@@ -28,12 +29,14 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch import parallel
 from gym_formation_tpu_torch.algos import make_algo
 from gym_formation_tpu_torch.parallel import mesh as dp
+from gym_formation_tpu_torch.parallel import tensor
 
 
 def _report(mesh, label: str, metrics) -> None:
     m = {k: round(float(v), 4) for k, v in metrics.items()}
-    if dp.rank(mesh) == 0:
-        print(f"dryrun_multichip {label} ok: mesh={{'data': {dp.size(mesh)}}} metrics={m}", flush=True)
+    if dp.rank(mesh) == 0 and tensor.rank(mesh) == 0:
+        shape = {"data": dp.size(mesh), "model": tensor.size(mesh)}
+        print(f"dryrun_multichip {label} ok: mesh={shape} metrics={m}", flush=True)
 
 
 def _finite(metrics, key: str) -> None:
@@ -53,6 +56,7 @@ def dryrun_rank(mesh, device: str = "cuda") -> None:
     algo = make_algo("mappo", env, B, ["rollout_len=4", "ppo_epochs=2", "num_minibatches=2"], device=device,
                      mesh=mesh)
     state = algo.init(g)
+    parallel.shard_params_(state[0], mesh)
     *state, m = algo.train_step(*state, g)
     _finite(m, "v_loss")
     _report(mesh, "mappo", m)
@@ -61,6 +65,7 @@ def dryrun_rank(mesh, device: str = "cuda") -> None:
     algo = make_algo("maddpg", env, B, ["buffer_size=256", "steps_per_iter=4", "updates_per_iter=2",
                                         "batch_size=16"], device=device, mesh=mesh)
     state = algo.init(g)
+    parallel.shard_params_(state[0], mesh)
     for _ in range(2):  # the second iteration samples the now-filled buffer
         *state, m = algo.train_step(*state, g)
     _finite(m, "critic_loss")
@@ -74,17 +79,20 @@ def dryrun_rank(mesh, device: str = "cuda") -> None:
     if not algo.structured_obs:
         raise RuntimeError("N=243 MAPPO should take the structured path")
     state = algo.init(g)
+    parallel.shard_params_(state[0], mesh)
     *state, m = algo.train_step(*state, g)
     _finite(m, "v_loss")
     _report(mesh, "mappo-n243-structured", m)
 
 
 def dryrun_multichip(n_devices: int, device: str = "cuda") -> None:
-    """Spawn ``n_devices`` ranks on this host and run :func:`dryrun_rank`
-    on each; raises if any rank fails."""
+    """Spawn ``n_devices`` ranks on this host on the mesh ``(n/2, 2)`` (an
+    even n) or ``(n, 1)`` and run :func:`dryrun_rank` on each; raises if any
+    rank fails."""
+    tp = 2 if n_devices >= 2 and n_devices % 2 == 0 else 1
     if device == "cuda":
-        parallel.parse_mesh_arg(str(n_devices), "cuda")
-    parallel.spawn(dryrun_rank, n_devices, (device,), device_type=device)
+        parallel.parse_mesh_arg(f"{n_devices // tp},{tp}", "cuda")
+    parallel.spawn(dryrun_rank, n_devices, (device,), device_type=device, tp=tp)
 
 
 def main(argv=None) -> None:

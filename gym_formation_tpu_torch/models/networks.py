@@ -23,6 +23,12 @@ two packages.  flax stores a Dense kernel as ``[in, out]``;
 flax's ``[N, in, out]`` as it is.  A GRU weight holds its three gates along
 one axis (axis 1 behind a stacked cell's agent axis), flax one kernel a
 gate.
+
+Under a mesh with a ``'model'`` axis (:mod:`~..parallel.tensor`) the layers
+whose weights are cut compute the rank's output columns and gather them
+(:class:`Dense`, :class:`StackedDense`, the GRU cells, a stacked log-std);
+each forward checks its own parameters, so a network with nothing cut runs
+as it always did.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import tensor as tp
 from ..parallel.mesh import draw_rows
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -53,10 +60,22 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator: Optional[torch.Gener
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
 
 
-def _linear(fan_in: int, fan_out: int, gain: float, generator: Optional[torch.Generator]) -> nn.Linear:
+class Dense(nn.Linear):
+    """``nn.Linear`` whose product splits over the model axis once its
+    weight is cut (rows, flax's output columns): the rank's columns from
+    its rows, gathered, then the whole bias."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mesh = tp.model_axis(self.weight)
+        if mesh is None:
+            return super().forward(x)
+        return tp.from_tp(nn.functional.linear(tp.to_tp(x, mesh), self.weight), mesh) + self.bias
+
+
+def _linear(fan_in: int, fan_out: int, gain: float, generator: Optional[torch.Generator]) -> Dense:
     """Dense layer with orthogonal weights of the given gain and zero bias
     (flax ``nn.initializers.orthogonal`` and the default zero bias)."""
-    lin = nn.Linear(fan_in, fan_out)
+    lin = Dense(fan_in, fan_out)
     with torch.no_grad():
         nn.init.orthogonal_(lin.weight, gain=gain, generator=generator)
         lin.bias.zero_()
@@ -144,7 +163,11 @@ class StackedDense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         eq = "...i,nio->...no" if self.shared_input else "...ni,nio->...no"
-        return torch.einsum(eq, x, self.kernel) + self.bias
+        mesh = tp.model_axis(self.kernel)
+        if mesh is None:
+            return torch.einsum(eq, x, self.kernel) + self.bias
+        # the kernel's and the bias's last axis cut alike: the rank's columns whole
+        return tp.from_tp(torch.einsum(eq, tp.to_tp(x, mesh), self.kernel) + self.bias, mesh)
 
 
 class StackedMLP(nn.Module):
@@ -182,7 +205,7 @@ class StackedActor(nn.Module):
         out = self.head(self.mlp(obs))
         if self.discrete:
             return out
-        return out, soft_bound(self.log_std, -5.0, 2.0).expand_as(out)
+        return out, soft_bound(tp.gathered(self.log_std), -5.0, 2.0).expand_as(out)
 
 
 class StackedValueCritic(nn.Module):
@@ -277,7 +300,7 @@ class QMixer(nn.Module):
         self.n_agents, self.embed = n_agents, embed
 
         def lecun(fan_out):
-            lin = nn.Linear(state_dim, fan_out)
+            lin = Dense(state_dim, fan_out)
             with torch.no_grad():
                 _lecun_normal_(lin.weight, state_dim, generator)
                 lin.bias.zero_()
@@ -328,14 +351,27 @@ class GRUCell(nn.Module):
                 self.weight_hh[g * H:(g + 1) * H] = w.T
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        gi = torch.nn.functional.linear(x, self.weight_ih, self.bias_ih)
-        gh = torch.nn.functional.linear(h, self.weight_hh)
-        ir, iz, in_ = gi.chunk(3, -1)
-        hr, hz, hn = gh.chunk(3, -1)
-        r = torch.sigmoid(ir + hr)
-        z = torch.sigmoid(iz + hz)
-        n = torch.tanh(in_ + r * (hn + self.bias_hn))
-        return (1.0 - z) * n + z * h
+        mesh = tp.model_axis(self.weight_ih)
+        if mesh is None:
+            gi = torch.nn.functional.linear(x, self.weight_ih, self.bias_ih)
+            gh = torch.nn.functional.linear(h, self.weight_hh)
+        else:  # every gate's H cut: both products' columns in one gather; the biases whole
+            lin = torch.nn.functional.linear
+            g = torch.cat([lin(tp.to_tp(x, mesh), self.weight_ih), lin(tp.to_tp(h, mesh), self.weight_hh)], -1)
+            gi, gh = tp.from_tp(g, mesh, gates=6).chunk(2, -1)
+            gi = gi + self.bias_ih
+        return _gru_update(gi, gh, h, self.bias_hn)
+
+
+def _gru_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor, bias_hn: Optional[torch.Tensor]) -> torch.Tensor:
+    """The GRU's gates from the input and hidden products ``gi``, ``gh``
+    [..., 3H] ((r, z, n) order; ``bias_hn`` None where ``gh`` holds it)."""
+    ir, iz, in_ = gi.chunk(3, -1)
+    hr, hz, hn = gh.chunk(3, -1)
+    r = torch.sigmoid(ir + hr)
+    z = torch.sigmoid(iz + hz)
+    n = torch.tanh(in_ + r * (hn if bias_hn is None else hn + bias_hn))
+    return (1.0 - z) * n + z * h
 
 
 def _reset_carry(carry: torch.Tensor, reset: Optional[torch.Tensor]) -> torch.Tensor:
@@ -357,14 +393,19 @@ class StackedGRUCell(nn.Module):
             self.register_parameter(name, nn.Parameter(torch.stack([getattr(c, name).detach() for c in cells])))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        gi = torch.einsum("...ni,ngi->...ng", x, self.weight_ih) + self.bias_ih
-        gh = torch.einsum("...nh,ngh->...ng", h, self.weight_hh)
-        ir, iz, in_ = gi.chunk(3, -1)
-        hr, hz, hn = gh.chunk(3, -1)
-        r = torch.sigmoid(ir + hr)
-        z = torch.sigmoid(iz + hz)
-        n = torch.tanh(in_ + r * (hn + self.bias_hn))
-        return (1.0 - z) * n + z * h
+        mesh = tp.model_axis(self.weight_ih)
+        if mesh is None:
+            gi = torch.einsum("...ni,ngi->...ng", x, self.weight_ih) + self.bias_ih
+            gh = torch.einsum("...nh,ngh->...ng", h, self.weight_hh)
+            return _gru_update(gi, gh, h, self.bias_hn)
+        # every gate's H cut, the biases' too: the rank's columns, biases
+        # added (b_hn into the n gate's), gathered in one call
+        gi = torch.einsum("...ni,ngi->...ng", tp.to_tp(x, mesh), self.weight_ih) + self.bias_ih
+        gh = torch.einsum("...nh,ngh->...ng", tp.to_tp(h, mesh), self.weight_hh)
+        hr_hz, hn = gh.split([2 * self.bias_hn.shape[-1], self.bias_hn.shape[-1]], -1)
+        g = torch.cat([gi, hr_hz, hn + self.bias_hn], -1)
+        gi, gh = tp.from_tp(g, mesh, gates=6).chunk(2, -1)
+        return _gru_update(gi, gh, h, None)
 
 
 class _StackedGRUTrunk(nn.Module):
@@ -398,7 +439,7 @@ class StackedGRUPolicy(_StackedGRUTrunk):
     def forward(self, carry: torch.Tensor, obs: torch.Tensor, reset: Optional[torch.Tensor] = None):
         carry = self._cell(carry, obs, reset)
         mean = self.out(carry)
-        return carry, (mean, soft_bound(self.log_std, -5.0, 2.0).expand_as(mean))
+        return carry, (mean, soft_bound(tp.gathered(self.log_std), -5.0, 2.0).expand_as(mean))
 
 
 class StackedRecurrentSquashedActor(_StackedGRUTrunk):

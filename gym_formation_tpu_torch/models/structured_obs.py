@@ -23,6 +23,12 @@ Weights are taken ``[in, out]`` (``nn.Linear.weight.T``), as flax stores
 them, so the algebra reads as the JAX package's.  The functions take the
 port's modules (:class:`~.networks.GaussianActor`,
 :class:`~.networks.ValueCritic`) and are differentiable by autograd.
+
+Every output column of the first layers depends on its own column of W
+alone, so under a model axis (:mod:`~..parallel.tensor`) :func:`hd_actor_h1`
+and :func:`hd_critic_h1` take the rank's columns of W (its rows of the
+``nn.Linear`` weight): at N=243 the critic's [354294, 64] kernel is split
+there.  The columns are gathered, then the whole bias added.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Optional
 
 import torch
 
+from ..parallel import tensor as tp
 from .networks import GaussianActor, ValueCritic
 
 
@@ -47,8 +54,8 @@ def _split_actor_w(W: torch.Tensor, n: int):
 def hd_actor_h1(W, b, apos, avel, ishape, ivel, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """``obs @ W + b`` for every agent without building obs.
 
-    apos/avel/ishape: [..., N, 2]; ivel: [..., 2]; W [6N, H], b [H].  Returns
-    [..., N, H].  ``dtype=torch.bfloat16`` runs the block products in bf16
+    apos/avel/ishape: [..., N, 2]; ivel: [..., 2]; W [6N, H], b [H] (or
+    None: no bias).  Returns [..., N, H].  ``dtype=torch.bfloat16`` runs the block products in bf16
     and returns h1 in bf16 (``MAPPOConfig.structured_bf16``).
 
     The prefix sum ``sum_{k<i} (p_k - p_{k+1}) @ W~[k]`` is a cumulative sum
@@ -61,7 +68,8 @@ def hd_actor_h1(W, b, apos, avel, ishape, ivel, dtype: Optional[torch.dtype] = N
     """
     n = apos.shape[-2]
     if dtype is not None:
-        W, b, apos, avel, ishape, ivel = (x.to(dtype) for x in (W, b, apos, avel, ishape, ivel))
+        W, apos, avel, ishape, ivel = (x.to(dtype) for x in (W, apos, avel, ishape, ivel))
+        b = None if b is None else b.to(dtype)
     Wv, Wr, Ws, Wi = _split_actor_w(W, n)
     diff = apos[..., : n - 1, :] - apos[..., 1:, :]
     d = torch.einsum("...kc,kch->...kh", diff, Wr)  # (p_k - p_{k+1}) @ W~[k]
@@ -70,7 +78,8 @@ def hd_actor_h1(W, b, apos, avel, ishape, ivel, dtype: Optional[torch.dtype] = N
     prefix = torch.cumsum(d, dim=-2, dtype=acc).to(d.dtype)  # sum_{k<=i}
     P = torch.cat([torch.zeros_like(prefix[..., :1, :]), prefix], dim=-2)  # sum_{k<i}
     U = Wr.sum(0)  # [2, H]
-    shared = ishape.reshape(*ishape.shape[:-2], 2 * n) @ Ws + ivel @ Wi + b + tot
+    shared = ishape.reshape(*ishape.shape[:-2], 2 * n) @ Ws + ivel @ Wi
+    shared = (shared if b is None else shared + b) + tot
     return avel @ Wv + P - apos @ U + shared[..., None, :]
 
 
@@ -96,19 +105,43 @@ def _critic_vu(Wc: torch.Tensor, n: int):
 
 
 def hd_critic_h1(Wc, bc, apos, avel, ishape, ivel) -> torch.Tensor:
-    """``share_obs @ Wc + bc`` without building share_obs.  [..., H]."""
+    """``share_obs @ Wc + bc`` without building share_obs (``bc`` None: no
+    bias).  [..., H]."""
     n = apos.shape[-2]
     Wv_i, U_i, V_k, Ws_sum, Wi_sum = _critic_vu(Wc, n)
     flat = lambda a: a.reshape(*a.shape[:-2], 2 * n)
     per_agent = lambda a, w: flat(a) @ w.reshape(2 * n, -1)
-    return (
+    h = (
         per_agent(avel, Wv_i)
         + per_agent(apos, V_k)
         - per_agent(apos, U_i)
         + flat(ishape) @ Ws_sum
         + ivel @ Wi_sum
-        + bc
     )
+    return h if bc is None else h + bc
+
+
+def _first_layer(h1_fn, lin, *parts, **kw) -> torch.Tensor:
+    """The first layer's pre-activation by ``h1_fn`` (:func:`hd_actor_h1`,
+    :func:`hd_critic_h1`) on ``lin``'s weight; under a model axis on the
+    rank's columns, gathered, then the whole bias added."""
+    mesh = tp.model_axis(lin.weight)
+    if mesh is None:
+        return h1_fn(lin.weight.T, lin.bias, *parts, **kw)
+    h1 = tp.from_tp(h1_fn(lin.weight.T, None, *parts, **kw), mesh)
+    return h1 + lin.bias.to(h1.dtype)
+
+
+def _dense(lin, h: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``h @ W + b`` of the ``nn.Linear`` ``lin``, its weights cast to
+    ``dtype`` where given; under a model axis the rank's columns gathered."""
+    w, b = lin.weight, lin.bias
+    if dtype is not None:
+        w, b = w.to(dtype), b.to(dtype)
+    mesh = tp.model_axis(lin.weight)
+    if mesh is None:
+        return h @ w.T + b
+    return tp.from_tp(tp.to_tp(h, mesh) @ w.T, mesh) + b
 
 
 def _mlp_tail(layers, h1pre: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -116,10 +149,7 @@ def _mlp_tail(layers, h1pre: torch.Tensor, dtype: Optional[torch.dtype] = None) 
     (``networks.MLP``: Dense then relu per layer)."""
     h = torch.relu(h1pre)
     for lin in layers[1:]:
-        w, b = lin.weight, lin.bias
-        if dtype is not None:
-            w, b = w.to(dtype), b.to(dtype)
-        h = torch.relu(h @ w.T + b)
+        h = torch.relu(_dense(lin, h, dtype))
     return h
 
 
@@ -128,19 +158,14 @@ def actor_forward_structured(actor: GaussianActor, apos, avel, ishape, ivel,
     """``actor(obs)`` on the hd observation, from the state parts.  With
     ``dtype`` set the trunk and head run in that type; the distribution
     parameters come back in the actor's own type either way."""
-    first = actor.mlp.layers[0]
-    h1 = hd_actor_h1(first.weight.T, first.bias, apos, avel, ishape, ivel, dtype=dtype)
+    h1 = _first_layer(hd_actor_h1, actor.mlp.layers[0], apos, avel, ishape, ivel, dtype=dtype)
     h = _mlp_tail(actor.mlp.layers, h1, dtype=dtype)
-    wh, bh = actor.head.weight, actor.head.bias
-    if dtype is not None:
-        wh, bh = wh.to(dtype), bh.to(dtype)
-    mean = (h @ wh.T + bh).to(actor.log_std.dtype)
+    mean = _dense(actor.head, h, dtype).to(actor.log_std.dtype)
     return mean, actor.bounded_log_std().expand_as(mean)
 
 
 def critic_forward_structured(critic: ValueCritic, apos, avel, ishape, ivel) -> torch.Tensor:
     """``critic(share_obs)`` on the hd observation, from the state parts."""
-    first = critic.mlp.layers[0]
-    h1 = hd_critic_h1(first.weight.T, first.bias, apos, avel, ishape, ivel)
+    h1 = _first_layer(hd_critic_h1, critic.mlp.layers[0], apos, avel, ishape, ivel)
     h = _mlp_tail(critic.mlp.layers, h1)
     return critic.head(h).squeeze(-1)

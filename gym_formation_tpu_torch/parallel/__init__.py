@@ -1,6 +1,6 @@
-"""Data parallelism over ``torch.distributed``: the counterpart of
-``gym_formation_tpu/parallel/`` for its ``'data'`` axis (see
-:mod:`.mesh`)."""
+"""Data and tensor parallelism over ``torch.distributed``: the counterpart
+of ``gym_formation_tpu/parallel/``, its ``'data'`` axis (:mod:`.mesh`) and
+its ``'model'`` axis (:mod:`.tensor`)."""
 
 from .mesh import (
     batch_sharding,
@@ -12,6 +12,7 @@ from .mesh import (
     shard_batch,
     shard_train_tuple,
 )
+from .tensor import shard_params_
 from .multihost import (
     host_local_to_global,
     initialize_multihost,
@@ -30,6 +31,7 @@ __all__ = [
     "replicated",
     "shard_batch",
     "shard_train_tuple",
+    "shard_params_",
     "host_local_to_global",
     "initialize_multihost",
     "per_host_batch",

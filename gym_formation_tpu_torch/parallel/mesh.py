@@ -1,10 +1,12 @@
-"""The data-parallel mesh and the helpers that place a training tuple on it.
+"""The mesh and the helpers that place a training tuple on it.
 
 Counterpart of ``gym_formation_tpu/parallel/mesh.py``.  The JAX package runs
 one controller over a mesh of devices and lets XLA insert the collectives;
 here every rank is one process holding one card (``torch.distributed``), the
 mesh is a :class:`~torch.distributed.device_mesh.DeviceMesh` over the ranks
-with the axis ``'data'``, and the collectives are written out.
+with the axis ``'data'`` (``--mesh DP``) or the axes ``('data', 'model')``
+(``--mesh DP,TP``), and the collectives are written out.  This module holds
+the data axis; :mod:`.tensor` the model axis (tensor parallelism).
 
 The contract of a run over W ranks with a global batch of B envs: it
 computes what one process computes with the same B and the same seed, up to
@@ -22,10 +24,10 @@ the order of a collective's sums.
   and updates on identical data with identical draws.
 
 Every helper takes ``mesh=None`` as the single process: it then returns its
-input, so a learner without a mesh runs exactly as before.
-
-Tensor parallelism (the ``'model'`` axis, ``--mesh DP,TP`` with TP > 1) is not
-ported yet (ROADMAP.md, Queue 1): :func:`parse_mesh_arg` refuses it.
+input, so a learner without a mesh runs exactly as before.  Under a 2-D mesh
+the data-axis helpers act within the rank's data group (the ranks of its
+model index), and the ranks that share a data index hold the same env rows
+and make the same draws.
 """
 
 from __future__ import annotations
@@ -40,23 +42,30 @@ import torch.distributed as dist
 
 AXIS = "data"
 
+#: the kinds of collective call: the data axis's, and the model axis's
+#: (:mod:`.tensor`: the activations' gathers, the input gradients' and the
+#: clip norm's sums, the checkpoints' and the kernels' weight gathers)
+KINDS = ("all_reduce", "all_gather", "broadcast", "model_all_reduce", "model_all_gather")
+
 #: the collective calls by kind; with ``timing`` on, each call's time too:
 #: CUDA events on the current stream around a call on card tensors (read by
 #: :func:`collective_ms`), the host's clock around one on CPU tensors
-stats = {"all_reduce": 0, "all_gather": 0, "broadcast": 0, "timing": False, "events": [], "host_ms": 0.0}
+stats = {**dict.fromkeys(KINDS, 0), "timing": False, "events": [], "host_ms": {}}
 
 
 def reset_stats(timing: bool = False) -> None:
     """Zero the collective counters; ``timing`` also times each call."""
-    stats.update(all_reduce=0, all_gather=0, broadcast=0, timing=timing, events=[], host_ms=0.0)
+    stats.update(dict.fromkeys(KINDS, 0), timing=timing, events=[], host_ms={})
 
 
-def collective_ms() -> float:
-    """The timed collectives' milliseconds since :func:`reset_stats`
-    (waits for the card's stream to pass the last event)."""
+def collective_ms(kinds: Sequence[str] = KINDS) -> float:
+    """The timed milliseconds of the collectives of ``kinds`` (default:
+    all) since :func:`reset_stats` (waits for the card's stream to pass the
+    last event)."""
     if stats["events"]:
-        stats["events"][-1][1].synchronize()
-    return stats["host_ms"] + sum(a.elapsed_time(b) for a, b in stats["events"])
+        stats["events"][-1][2].synchronize()
+    return (sum(v for k, v in stats["host_ms"].items() if k in kinds)
+            + sum(a.elapsed_time(b) for k, a, b in stats["events"] if k in kinds))
 
 
 def make_mesh(shape: Optional[Tuple[int, ...]] = None, axis_names: Tuple[str, ...] = (AXIS,),
@@ -85,8 +94,8 @@ def parse_mesh_arg(spec: str, device_type: str = "cuda", devices: Optional[int] 
     """The mesh shape ``(DP, TP)`` of a CLI string ``"DP"`` or ``"DP,TP"``.
 
     ``devices``: the cards a ``cuda`` run may take (default: the visible
-    ones).  Raises for a malformed spec, for more ranks than cards on
-    ``cuda``, and for TP > 1, which is not ported yet."""
+    ones).  Raises for a malformed spec and for more ranks than cards on
+    ``cuda``."""
     try:
         parts = [int(x) for x in spec.split(",")]
     except ValueError:
@@ -95,9 +104,6 @@ def parse_mesh_arg(spec: str, device_type: str = "cuda", devices: Optional[int] 
     tp = parts[1] if len(parts) > 1 else 1
     if len(parts) > 2 or dp < 1 or tp < 1:
         raise ValueError(f"--mesh expects DP or DP,TP; got {spec!r}")
-    if tp > 1:
-        raise ValueError(f"--mesh {spec}: tensor parallelism (TP > 1) is not ported yet; the port shards the "
-                         "data axis only (ROADMAP.md, Queue 1: the tensor-parallel slice)")
     if device_type == "cuda":
         avail = torch.cuda.device_count() if devices is None else devices
         if dp * tp > avail:
@@ -207,11 +213,11 @@ def _timed(kind: str, t: torch.Tensor, call: Callable):
         start.record()
         out = call()
         end.record()
-        stats["events"].append((start, end))
+        stats["events"].append((kind, start, end))
         return out
     t0 = time.perf_counter()
     out = call()
-    stats["host_ms"] += (time.perf_counter() - t0) * 1e3
+    stats["host_ms"][kind] = stats["host_ms"].get(kind, 0.0) + (time.perf_counter() - t0) * 1e3
     return out
 
 
@@ -340,17 +346,21 @@ def _family(name: str) -> str:
 def shard_train_tuple(name: str, state, mesh):
     """Place the global training tuple of the learner ``name`` (an
     unsharded ``init``, or a restored checkpoint) on ``mesh``: parameters,
-    optimizer states and counters broadcast from rank 0; the env state,
-    observations, recurrent carries and MADDPG's OU state cut to the rank's
-    rows; replay buffers replicated whole.  For all 13 names:
+    optimizer states and counters broadcast from the data group's first
+    rank, then, on a model axis, every parameter that JAX's rule shards and
+    its Adam moments cut to the rank's slice (:func:`.tensor.shard_params_`);
+    the env state, observations, recurrent carries and MADDPG's OU state cut
+    to the rank's rows; replay buffers replicated whole.  For all 13 names:
 
     - on-policy ``(ts, env_state, obs[, carry])``;
     - feed-forward off-policy ``(ts, buffer, env_state, obs)``;
     - recurrent off-policy ``(ts, buffer)``.
     """
+    from .tensor import shard_params_
+
     family = _family(name)
     out = list(state)
-    ts = replicate_(out[0], mesh)
+    ts = shard_params_(replicate_(out[0], mesh), mesh)
     for f in BATCH_FIELDS:
         if getattr(ts, f, None) is not None:
             setattr(ts, f, local_rows(getattr(ts, f), mesh))
@@ -364,15 +374,17 @@ def shard_train_tuple(name: str, state, mesh):
 
 def gather_train_tuple(name: str, state, mesh):
     """Inverse of :func:`shard_train_tuple`: the global tuple, every rank's
-    rows gathered (a collective: every rank calls it), for a checkpoint that
-    restores under any data-parallel size."""
+    rows gathered and, on a model axis, the parameters and their moments
+    gathered whole into a copy of the training state (a collective: every
+    rank calls it), for a checkpoint that restores under any mesh or none."""
     from .multihost import host_local_to_global
+    from .tensor import whole_state
 
     if mesh is None:
         return list(state)
     family = _family(name)
     out = list(state)
-    ts = out[0]
+    ts = whole_state(out[0], mesh)
     for f in BATCH_FIELDS:
         if getattr(ts, f, None) is not None:
             ts = dataclasses.replace(ts, **{f: host_local_to_global(getattr(ts, f), mesh)})

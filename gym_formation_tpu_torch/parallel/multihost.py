@@ -7,10 +7,10 @@ world is a ``torch.distributed`` process group, and a global batch is the
 concatenation of the ranks' rows in rank order.
 
 Launch a world on one host with ``python -m gym_formation_tpu_torch.train
---mesh DP`` (it spawns the ranks), or on several hosts under ``torchrun``
-with ``--multihost``, which reads the rendezvous from torchrun's variables
-(``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``)
-as ``jax.distributed`` reads a pod's.
+--mesh DP[,TP]`` (it spawns the ranks), or on several hosts under
+``torchrun`` with ``--multihost``, which reads the rendezvous from
+torchrun's variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``) as ``jax.distributed`` reads a pod's.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from .mesh import all_gather_rows, make_mesh, replicate_, tree_map
+from .mesh import AXIS, all_gather_rows, make_mesh, replicate_, tree_map
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
@@ -55,11 +55,16 @@ def initialize_multihost(coordinator_address: Optional[str] = None, num_processe
 
 
 def pod_mesh(tp: int = 1, device_type: Optional[str] = None):
-    """The mesh over every rank of the world: data-parallel over
-    ``world // tp``.  TP > 1 is not ported yet."""
-    if tp != 1:
-        raise ValueError("tensor parallelism (tp > 1) is not ported yet (ROADMAP.md, Queue 1)")
-    return make_mesh((dist.get_world_size(),), device_type=device_type)
+    """The mesh over every rank of the world: data-parallel over ``world //
+    tp``, tensor-parallel over ``tp``: ``('data', 'model')`` of shape
+    ``(world // tp, tp)`` (rank ``d·tp + m`` at data index d, model index
+    m), or the 1-D ``('data',)`` mesh for ``tp == 1``."""
+    world = dist.get_world_size()
+    if world % tp:
+        raise ValueError(f"a model axis of {tp} does not divide the world of {world}")
+    if tp == 1:
+        return make_mesh((world,), device_type=device_type)
+    return make_mesh((world // tp, tp), (AXIS, "model"), device_type=device_type)
 
 
 def per_host_batch(global_batch: int) -> int:
@@ -95,23 +100,25 @@ def replicate_global(tree, mesh):
     return replicate_(tree, mesh)
 
 
-def _rank_main(rank: int, fn, world: int, port: int, backend: str, device_type: str, args) -> None:
+def _rank_main(rank: int, fn, world: int, port: int, backend: str, device_type: str, args, tp: int) -> None:
     initialize_multihost(f"127.0.0.1:{port}", world, rank, backend, device_type)
     try:
-        fn(make_mesh(device_type=device_type), *args)
+        fn(pod_mesh(tp, device_type), *args)
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn, world: int, args=(), backend: Optional[str] = None, device_type: str = "cuda") -> None:
+def spawn(fn, world: int, args=(), backend: Optional[str] = None, device_type: str = "cuda", tp: int = 1) -> None:
     """Run ``fn(mesh, *args)`` in ``world`` new processes on this host, one
     rank each, joined by a rendezvous on a free localhost port (``fn`` a
-    module-level function).  Returns when every rank has returned; if one
-    raises, the others are stopped and this raises."""
+    module-level function), on the mesh of :func:`pod_mesh` (``tp``).
+    Returns when every rank has returned; if one raises, the others are
+    stopped and this raises."""
     import torch.multiprocessing as mp
 
     backend = backend or ("nccl" if device_type == "cuda" else "gloo")
     with socket.socket() as s:  # a free port on localhost for the rendezvous
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    mp.spawn(_rank_main, args=(fn, world, port, backend, device_type, tuple(args)), nprocs=world, join=True)
+    mp.spawn(_rank_main, args=(fn, world, port, backend, device_type, tuple(args), tp), nprocs=world,
+             join=True)

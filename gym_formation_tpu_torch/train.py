@@ -12,18 +12,22 @@
     python -m gym_formation_tpu_torch.train --restore --run-dir runs/my_run
     python -m gym_formation_tpu_torch.train --mesh 4 --num-agents 243 --num-envs 1024
     python -m gym_formation_tpu_torch.train --mesh 2 --device cpu --num-envs 8 --iters 2
+    python -m gym_formation_tpu_torch.train --mesh 2,2 --device cpu --num-envs 8 --iters 2
     torchrun --nnodes 2 --nproc-per-node 4 ... -m gym_formation_tpu_torch.train --multihost
 
 The arguments are the JAX package's ``train.py`` ones for its 13 algorithms,
 plus ``--device`` (default ``cuda``; without a CUDA device the run stops
 unless ``--device cpu`` is given).  ``--mesh DP`` trains data-parallel over DP
 processes on this host, one card each (``nccl``), or on the CPU under
-``--device cpu`` (``gloo``); ``--multihost`` joins the world torchrun
-launched, the mesh spanning it.  ``--num-envs`` is the global batch: each
-rank steps its share, and the run computes what one process computes with
-the same batch and seed (:mod:`gym_formation_tpu_torch.parallel`).  Rank 0
-alone logs and writes checkpoints, which hold the global env state, so they
-restore under any DP that divides the batch.  Every ``--log-every`` iterations one row
+``--device cpu`` (``gloo``); ``--mesh DP,TP`` over DP·TP processes, each
+parameter that the JAX package's rule shards cut over the TP ranks of a
+data index (tensor parallelism, the ``'model'`` axis); ``--multihost``
+joins the world torchrun launched, the mesh spanning it.  ``--num-envs`` is
+the global batch: each data rank steps its share, and the run computes what
+one process computes with the same batch and seed
+(:mod:`gym_formation_tpu_torch.parallel`).  Rank 0 alone logs and writes
+checkpoints, which hold the global env state and whole parameters, so they
+restore under any mesh whose DP divides the batch, or none.  Every ``--log-every`` iterations one row
 of metrics goes to ``<run-dir>/metrics.jsonl``; every ``--save-every``
 iterations the whole training tuple goes to ``<run-dir>/ckpt/``, an
 off-policy learner's replay buffer included.  The run ends with the
@@ -42,6 +46,7 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch import parallel
 from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, EPISODIC, ONPOLICY, make_algo
 from gym_formation_tpu_torch.parallel import mesh as dp
+from gym_formation_tpu_torch.parallel import tensor
 from gym_formation_tpu_torch.utils import MetricsLogger, latest_step, restore_checkpoint, save_checkpoint
 
 # the algorithms that take --discrete-action (the JAX package's list)
@@ -73,11 +78,12 @@ def parse_args(argv=None):
                    help="resume from the latest checkpoint in --run-dir")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--mesh", default=None, metavar="DP[,TP]",
-                   help="train data-parallel over DP processes on this host (one card each with nccl; on the CPU "
-                   "with gloo under --device cpu); --num-envs must divide by DP.  TP > 1 is not ported yet")
+                   help="train over DP·TP processes on this host (one card each with nccl; on the CPU with gloo "
+                   "under --device cpu): data-parallel over DP, the networks' wide layers split over TP; "
+                   "--num-envs must divide by DP")
     p.add_argument("--multihost", action="store_true",
-                   help="join the world launched by torchrun (its environment gives the rendezvous); the "
-                   "data-parallel mesh spans every rank")
+                   help="join the world launched by torchrun (its environment gives the rendezvous); the mesh "
+                   "spans every rank, tensor-parallel over the TP of --mesh DP,TP where given")
     return p.parse_args(argv)
 
 
@@ -115,15 +121,16 @@ def main(argv=None) -> None:
     if args.multihost:
         parallel.initialize_multihost(device_type=device.type)
         try:
-            mesh = parallel.pod_mesh(device_type=device.type)
-            if args.mesh and parse_mesh(args, None)[0] != dp.size(mesh):
-                raise SystemExit(f"--mesh {args.mesh} under --multihost must span the world of {dp.size(mesh)}")
-            run(mesh, args)
+            dp_size, tp_size = parse_mesh(args, None) if args.mesh else (None, 1)
+            world = torch.distributed.get_world_size()
+            if dp_size is not None and dp_size * tp_size != world:
+                raise SystemExit(f"--mesh {args.mesh} under --multihost must span the world of {world}")
+            run(parallel.pod_mesh(tp_size, device_type=device.type), args)
         finally:
             torch.distributed.destroy_process_group()
     elif args.mesh:
-        world, _ = parse_mesh(args, device.type)
-        parallel.spawn(run, world, (args,), device_type=device.type)
+        dp_size, tp_size = parse_mesh(args, device.type)
+        parallel.spawn(run, dp_size * tp_size, (args,), device_type=device.type, tp=tp_size)
     else:
         run(None, args)
 
@@ -146,7 +153,7 @@ def run(mesh, args) -> None:
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    lead = dp.rank(mesh) == 0  # logs and writes checkpoints
+    lead = dp.rank(mesh) == 0 and tensor.rank(mesh) == 0  # logs and writes checkpoints
 
     kw = {}
     if args.episode_length is not None:
@@ -161,10 +168,10 @@ def run(mesh, args) -> None:
     generator = torch.Generator(device=device)
     generator.manual_seed(args.seed)
     # (ts, env_state, obs[, carry]), (ts, buffer, env_state, obs) or (ts,
-    # buffer); under a mesh the env rows are the rank's, and the networks
-    # rank 0's
+    # buffer); under a mesh the env rows are the data rank's, the networks
+    # rank 0's, cut to the rank's slices on a model axis
     state = algo.init(generator)
-    parallel.replicate_global(state[0], mesh)
+    parallel.shard_params_(parallel.replicate_global(state[0], mesh), mesh)
     start = 0
     if args.restore:
         step = latest_step(ckpt_dir)
@@ -179,7 +186,12 @@ def run(mesh, args) -> None:
     if lead:
         print(f"{args.algo} on {args.scenario} N={args.num_agents} B={args.num_envs} device={device} "
               f"discrete={algo.discrete}: {switches(args.algo, algo)}")
-        if mesh is not None:
+        if mesh is not None and tensor.size(mesh) > 1:
+            world = dp.size(mesh) * tensor.size(mesh)
+            held = tensor.held_bytes(state[0])
+            print(f"mesh: {{'data': {dp.size(mesh)}, 'model': {tensor.size(mesh)}}} over {world} devices")
+            print(f"held a rank: params {held['params']} B, moments {held['moments']} B")
+        elif mesh is not None:
             print(f"mesh: {{'data': {dp.size(mesh)}}} over {dp.size(mesh)} devices")
     if args.algo in ONPOLICY:
         steps_per_iter = cfg.rollout_len * args.num_envs
@@ -201,8 +213,10 @@ def run(mesh, args) -> None:
                 save_checkpoint(ckpt_dir, i + 1, algo.checkpoint_tree(*whole, generator), max_to_keep=2)
     if lead and mesh is not None:
         ms = dp.collective_ms()  # checkpoints' gathers included
+        model = (f", model all_gather {dp.stats['model_all_gather'] / args.iters:.1f}, model all_reduce "
+                 f"{dp.stats['model_all_reduce'] / args.iters:.1f}" if tensor.size(mesh) > 1 else "")
         print(f"collectives an iteration (rank 0): all_reduce {dp.stats['all_reduce'] / args.iters:.1f}, "
-              f"all_gather {dp.stats['all_gather'] / args.iters:.1f}, {ms / args.iters:.3f} ms")
+              f"all_gather {dp.stats['all_gather'] / args.iters:.1f}{model}, {ms / args.iters:.3f} ms")
     if lead:
         logger.plot("mean_step_reward")
         logger.close()

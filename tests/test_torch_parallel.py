@@ -78,9 +78,10 @@ def test_parse_mesh_arg_refuses_malformed(spec):
         parallel.parse_mesh_arg(spec, "cpu")
 
 
-def test_parse_mesh_arg_refuses_tensor_parallel():
-    with pytest.raises(ValueError, match="not ported yet.*ROADMAP"):
-        parallel.parse_mesh_arg("4,2", "cpu")
+def test_parse_mesh_arg_accepts_tensor_parallel():
+    assert parallel.parse_mesh_arg("4,2", "cpu") == (4, 2)
+    with pytest.raises(ValueError, match="needs 8 devices"):
+        parallel.parse_mesh_arg("4,2", "cuda", devices=4)
 
 
 def test_parse_mesh_arg_refuses_more_ranks_than_cards():
@@ -314,7 +315,7 @@ def test_dryrun_multichip_two_ranks_on_the_cpu():
     r = run(["-m", "gym_formation_tpu_torch.graft_entry", "2", "--device", "cpu"], timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
     for label in ("mappo", "maddpg", "mappo-n243-structured"):
-        assert f"dryrun_multichip {label} ok: mesh={{'data': 2}}" in r.stdout
+        assert f"dryrun_multichip {label} ok: mesh={{'data': 1, 'model': 2}}" in r.stdout
 
 
 def test_a_failing_rank_fails_the_run():

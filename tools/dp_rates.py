@@ -1,15 +1,17 @@
-"""Training env-steps/s of the port's ``train --mesh DP`` against ``--mesh 1``.
+"""Training env-steps/s of the port's ``train --mesh DP[,TP]`` runs.
 
-    python tools/dp_rates.py --meshes 1,4 [--dryrun 4] [--device cuda] \\
+    python tools/dp_rates.py --meshes 1 4 [2,2 1,4] [--dryrun 4] [--device cuda] \\
         [--algo mappo --num-agents 243 --num-envs 1024 --iters 5] [--out chiprun_out/dp_rates.json]
 
-Runs ``python -m gym_formation_tpu_torch.train`` once for each mesh size
-(one card a rank with nccl; ``--device cpu``: gloo), logging every
-iteration, and reads its ``metrics.jsonl``: the training env-steps/s is the
-env steps of the iterations after the first over their wall (the logger's
-clock, each row closed by a host fetch of the metrics).  Beside it the
-collectives' calls and ms an iteration that rank 0 prints (CUDA events on
-the card), and the card's name and power limit.  ``--dryrun N`` first runs
+Runs ``python -m gym_formation_tpu_torch.train`` once for each mesh, a
+``DP`` or ``DP,TP`` entry (one card a rank with nccl; ``--device cpu``:
+gloo), logging every iteration, and reads its ``metrics.jsonl``: the
+training env-steps/s is the env steps of the iterations after the first
+over their wall (the logger's clock, each row closed by a host fetch of the
+metrics).  Beside it the collectives' calls (the model axis's where TP > 1)
+and ms an iteration that rank 0 prints (CUDA events on the card), the
+parameter and moment bytes a rank holds, and the card's name and power
+limit.  ``--dryrun N`` first runs
 ``python -m gym_formation_tpu_torch.graft_entry N``.  Prints one JSON
 object and writes it to ``--out``.
 """
@@ -47,7 +49,7 @@ def run(cmd, timeout):
 
 def main() -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--meshes", default="1,4")
+    p.add_argument("--meshes", nargs="+", default=["1", "4"], help="--mesh values, DP or DP,TP each")
     p.add_argument("--dryrun", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--algo", default="mappo")
@@ -66,7 +68,7 @@ def main() -> None:
         result["dryrun"] = {"ranks": args.dryrun, "process_s": wall,
                             "lines": [line for line in out.splitlines() if line.startswith("dryrun_multichip")]}
         print(out, flush=True)
-    for mesh in args.meshes.split(","):
+    for mesh in args.meshes:
         with tempfile.TemporaryDirectory() as d:
             sets = [a for s in args.set for a in ("--set", s)]
             out, wall = run(["-m", "gym_formation_tpu_torch.train", "--algo", args.algo, "--device", args.device,
@@ -76,14 +78,19 @@ def main() -> None:
             rows = [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
         steps = rows[-1]["step"] - rows[0]["step"]
         secs = rows[-1]["wall"] - rows[0]["wall"]
-        coll = re.search(r"collectives an iteration \(rank 0\): all_reduce ([\d.]+), all_gather ([\d.]+), "
-                         r"([\d.]+) ms", out)
+        coll = re.search(r"collectives an iteration \(rank 0\): all_reduce ([\d.]+), all_gather ([\d.]+)"
+                         r"(?:, model all_gather ([\d.]+), model all_reduce ([\d.]+))?, ([\d.]+) ms", out)
+        held = re.search(r"held a rank: params (\d+) B, moments (\d+) B", out)
+        num = lambda i: float(coll.group(i)) if coll and coll.group(i) else None
         result["runs"][mesh] = {
             "env_steps_per_s": steps / secs if secs > 0 else None,
             "iteration_walls_s": [b["wall"] - a["wall"] for a, b in zip(rows, rows[1:])],
-            "all_reduce_calls": float(coll.group(1)) if coll else None,
-            "all_gather_calls": float(coll.group(2)) if coll else None,
-            "collective_ms": float(coll.group(3)) if coll else None,
+            "all_reduce_calls": num(1),
+            "all_gather_calls": num(2),
+            "model_all_gather_calls": num(3),
+            "model_all_reduce_calls": num(4),
+            "collective_ms": num(5),
+            "held_bytes": {"params": int(held.group(1)), "moments": int(held.group(2))} if held else None,
             "mean_step_reward": [r["mean_step_reward"] for r in rows],
             "process_s": wall,
         }
