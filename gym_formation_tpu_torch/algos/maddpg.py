@@ -377,6 +377,10 @@ class MADDPGState:
     grad_updates: int
     ou_state: torch.Tensor  # [B, N, da], the OU process (ou_mu when unused)
 
+    def adam_params(self) -> Dict[str, list]:
+        """Each Adam state's field → the parameters its moments follow, in order."""
+        return {"actor_opt": list(self.actor.parameters()), "critic_opt": list(self.critic.parameters())}
+
 
 class MADDPG(OffPolicy):
     """MADDPG, or DDPG with ``centralized=False``."""

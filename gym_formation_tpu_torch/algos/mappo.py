@@ -170,6 +170,10 @@ class MAPPOState:
         ps = list(self.actor.parameters()) + list(self.critic.parameters())
         return ps + ([self.log_alpha] if self.log_alpha is not None else [])
 
+    def adam_params(self) -> Dict[str, List[torch.nn.Parameter]]:
+        """Each Adam state's field → the parameters its moments follow, in order."""
+        return {"opt_state": self.params()}
+
 
 def huber(x: torch.Tensor, delta: float) -> torch.Tensor:
     a = x.abs()

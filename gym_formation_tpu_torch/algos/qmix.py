@@ -63,6 +63,10 @@ class QMixState:
     env_steps: int
     grad_updates: int
 
+    def adam_params(self) -> Dict[str, list]:
+        """Each Adam state's field → the parameters its moments follow, in order."""
+        return {"opt": Mixing._params(self.q, self.mixer)}
+
 
 class Mixing:
     """What QMix and the recurrent RQMix share: the learner's checks and

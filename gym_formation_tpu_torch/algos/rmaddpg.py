@@ -245,6 +245,10 @@ class RMADDPGState:
     env_steps: int
     grad_updates: int
 
+    def adam_params(self) -> Dict[str, list]:
+        """Each Adam state's field → the parameters its moments follow, in order."""
+        return {"actor_opt": list(self.actor.parameters()), "critic_opt": list(self.critic.parameters())}
+
 
 class RMADDPG(Episodic):
     """RMADDPG, or RMATD3 with ``twin=True``."""

@@ -58,6 +58,11 @@ class RMASACState:
     alpha_opt: AdamState
     env_steps: int
 
+    def adam_params(self) -> Dict[str, list]:
+        """Each Adam state's field → the parameters its moments follow, in order."""
+        return {"actor_opt": list(self.actor.parameters()), "critic_opt": list(self.critic.parameters()),
+                "alpha_opt": [self.log_alpha]}
+
 
 class RMASAC(Episodic):
     loss_keys = ("critic_loss", "actor_loss", "alpha", "entropy")

@@ -26,9 +26,10 @@ gate.
 
 Under a mesh with a ``'model'`` axis (:mod:`~..parallel.tensor`) the layers
 whose weights are cut compute the rank's output columns and gather them
-(:class:`Dense`, :class:`StackedDense`, the GRU cells, a stacked log-std);
-each forward checks its own parameters, so a network with nothing cut runs
-as it always did.
+(:class:`Dense`, :class:`StackedDense`, the GRU cells, a stacked log-std).
+Each declares its cuts in ``tp_cuts`` (parameter → ``(dim, gates)``), where
+JAX's rule falls in its layout; with nothing cut the helpers return their
+input, and the same forward is the whole layer's.
 """
 
 from __future__ import annotations
@@ -65,10 +66,10 @@ class Dense(nn.Linear):
     weight is cut (rows, flax's output columns): the rank's columns from
     its rows, gathered, then the whole bias."""
 
+    tp_cuts = {"weight": (0, 1)}
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mesh = tp.model_axis(self.weight)
-        if mesh is None:
-            return super().forward(x)
         return tp.from_tp(nn.functional.linear(tp.to_tp(x, mesh), self.weight), mesh) + self.bias
 
 
@@ -149,6 +150,8 @@ class StackedDense(nn.Module):
     [..., N, in], or [..., in] shared by every agent (``shared_input``);
     the output [..., N, out]."""
 
+    tp_cuts = {"kernel": (2, 1), "bias": (1, 1)}
+
     def __init__(self, n: int, fan_in: int, fan_out: int, gain: float,
                  generator: Optional[torch.Generator] = None, shared_input: bool = False):
         super().__init__()
@@ -164,8 +167,6 @@ class StackedDense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         eq = "...i,nio->...no" if self.shared_input else "...ni,nio->...no"
         mesh = tp.model_axis(self.kernel)
-        if mesh is None:
-            return torch.einsum(eq, x, self.kernel) + self.bias
         # the kernel's and the bias's last axis cut alike: the rank's columns whole
         return tp.from_tp(torch.einsum(eq, tp.to_tp(x, mesh), self.kernel) + self.bias, mesh)
 
@@ -191,6 +192,8 @@ class StackedMLP(nn.Module):
 class StackedActor(nn.Module):
     """Per-agent actors (``share_policy=False``): ``obs [..., N, do]`` →
     ``(mean, log_std)`` [..., N, da], or logits when ``discrete``."""
+
+    tp_cuts = {"log_std": (1, 1)}
 
     def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: Sequence[int] = (64, 64),
                  discrete: bool = False, generator: Optional[torch.Generator] = None):
@@ -336,6 +339,8 @@ class GRUCell(nn.Module):
     Init as flax's: the input kernels lecun-normal (truncated), the hidden
     kernels orthogonal, the biases zero."""
 
+    tp_cuts = {"weight_ih": (0, 3), "weight_hh": (0, 3)}
+
     def __init__(self, in_dim: int, hidden: int, generator: Optional[torch.Generator] = None):
         super().__init__()
         H = hidden
@@ -351,16 +356,11 @@ class GRUCell(nn.Module):
                 self.weight_hh[g * H:(g + 1) * H] = w.T
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        mesh = tp.model_axis(self.weight_ih)
-        if mesh is None:
-            gi = torch.nn.functional.linear(x, self.weight_ih, self.bias_ih)
-            gh = torch.nn.functional.linear(h, self.weight_hh)
-        else:  # every gate's H cut: both products' columns in one gather; the biases whole
-            lin = torch.nn.functional.linear
-            g = torch.cat([lin(tp.to_tp(x, mesh), self.weight_ih), lin(tp.to_tp(h, mesh), self.weight_hh)], -1)
-            gi, gh = tp.from_tp(g, mesh, gates=6).chunk(2, -1)
-            gi = gi + self.bias_ih
-        return _gru_update(gi, gh, h, self.bias_hn)
+        # every gate's H cut: both products' columns in one gather; the biases whole
+        mesh, lin = tp.model_axis(self.weight_ih), torch.nn.functional.linear
+        g = torch.cat([lin(tp.to_tp(x, mesh), self.weight_ih), lin(tp.to_tp(h, mesh), self.weight_hh)], -1)
+        gi, gh = tp.from_tp(g, mesh, gates=6).chunk(2, -1)
+        return _gru_update(gi + self.bias_ih, gh, h, self.bias_hn)
 
 
 def _gru_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor, bias_hn: Optional[torch.Tensor]) -> torch.Tensor:
@@ -386,6 +386,8 @@ class StackedGRUCell(nn.Module):
     ``h`` [..., N, H] and ``x`` [..., N, in].  Each agent's slice is
     initialised as :class:`GRUCell` is."""
 
+    tp_cuts = {"weight_ih": (1, 3), "weight_hh": (1, 3), "bias_ih": (1, 3), "bias_hn": (1, 1)}
+
     def __init__(self, n: int, in_dim: int, hidden: int, generator: Optional[torch.Generator] = None):
         super().__init__()
         cells = [GRUCell(in_dim, hidden, generator) for _ in range(n)]
@@ -394,10 +396,6 @@ class StackedGRUCell(nn.Module):
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         mesh = tp.model_axis(self.weight_ih)
-        if mesh is None:
-            gi = torch.einsum("...ni,ngi->...ng", x, self.weight_ih) + self.bias_ih
-            gh = torch.einsum("...nh,ngh->...ng", h, self.weight_hh)
-            return _gru_update(gi, gh, h, self.bias_hn)
         # every gate's H cut, the biases' too: the rank's columns, biases
         # added (b_hn into the n gate's), gathered in one call
         gi = torch.einsum("...ni,ngi->...ng", tp.to_tp(x, mesh), self.weight_ih) + self.bias_ih
@@ -430,6 +428,8 @@ class StackedGRUPolicy(_StackedGRUTrunk):
     carry [..., N, H] and ``reset`` [..., N] (or None) → ``(carry, (mean,
     log_std))`` [..., N, da].  The log-std is soft-bounded to (−5, 2), kept
     so that the tree round-trips (RMADDPG takes only the mean)."""
+
+    tp_cuts = {"log_std": (1, 1)}
 
     def __init__(self, n: int, obs_dim: int, act_dim: int, hidden: int = 64,
                  generator: Optional[torch.Generator] = None):

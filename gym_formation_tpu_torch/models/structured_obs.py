@@ -139,8 +139,6 @@ def _dense(lin, h: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.T
     if dtype is not None:
         w, b = w.to(dtype), b.to(dtype)
     mesh = tp.model_axis(lin.weight)
-    if mesh is None:
-        return h @ w.T + b
     return tp.from_tp(tp.to_tp(h, mesh) @ w.T, mesh) + b
 
 

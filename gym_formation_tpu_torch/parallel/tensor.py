@@ -4,7 +4,10 @@ Counterpart of ``gym_formation_tpu/parallel/mesh.py: model_sharding_for_params``
 and of what XLA does with it.  The rule is JAX's, read on the flax layout of
 each leaf (the converters' ``to_flax`` names): a leaf of two or more axes
 whose last axis divides by TP is cut along that axis, every other leaf is
-replicated.  In the port's layouts that is:
+replicated.  Each layer declares where that rule falls in its own layout,
+``tp_cuts``: parameter name → ``(dim, gates)``, the leaf cut along ``dim``,
+each of its ``gates`` equal blocks into TP slices (:class:`Cut`), where a
+block divides by TP.  In the port's layouts that is:
 
 - ``nn.Linear.weight`` [out, in] (flax's [in, out]): rows, when out divides;
   its bias [out] stays whole;
@@ -12,25 +15,26 @@ replicated.  In the port's layouts that is:
   ``log_std`` [N, act]: the last axis;
 - a GRU weight [3H, in] (or [N, 3H, in]): flax keeps one kernel a gate
   ([in, H]), so each gate's H is cut, and rank r holds rows ``g·H +
-  [r·H/TP, (r+1)·H/TP)`` of gates g = 0, 1, 2: a strided cut (:class:`Cut`
-  with ``gates=3``); a stacked cell's biases alike, an unstacked cell's
-  (1-D) stay whole.
+  [r·H/TP, (r+1)·H/TP)`` of gates g = 0, 1, 2: a strided cut (``gates=3``);
+  a stacked cell's biases alike, an unstacked cell's (1-D) stay whole.
 
-Every rank holds its slice of each cut leaf, and of the leaf's Adam moments.
-A cut layer computes the rank's output columns from its slice and gathers
-them along the features at once (:func:`from_tp`, the gradient's slice
-backward); its input enters through :func:`to_tp` (identity forward, the
-input gradient summed over ``'model'`` backward).  So everything downstream
-of a layer is whole and equal on every rank of a model group: the
-replicated leaves' gradients need no collective, and the metrics are whole.
-The global gradient norm sums the cut gradients' squares over ``'model'``
-(:func:`model_sum`, in ``ClipAdam``).  Kernels that take whole weights (K5,
-K9) get them gathered (:func:`whole_module`) and K9's gradients are cut back
-(:func:`local_like`).  Every call is counted (and timed) in
-:data:`.mesh.stats` as ``model_all_gather`` / ``model_all_reduce``.
+Every rank holds its slice of each cut leaf, and of the leaf's Adam moments
+(a learner's state names the parameters each of its Adam states follows,
+``adam_params()``).  A cut layer computes the rank's output columns from its
+slice and gathers them along the features at once (:func:`from_tp`, the
+gradient's slice backward); its input enters through :func:`to_tp`
+(identity forward, the input gradient summed over ``'model'`` backward).
+So everything downstream of a layer is whole and equal on every rank of a
+model group: the replicated leaves' gradients need no collective, and the
+metrics are whole.  The global gradient norm sums the cut gradients'
+squares over ``'model'`` (:func:`model_sum`, in ``ClipAdam``).  Kernels that
+take whole weights (K5, K9) get them gathered (:func:`whole_module`) and
+K9's gradients are cut back (:func:`local_like`).  Every call is counted
+(and timed) in :data:`.mesh.stats` as ``model_all_gather`` /
+``model_all_reduce``.
 
 Without a mesh, or on a mesh without a model axis, nothing is cut and every
-helper returns its input.
+helper returns its input, so a layer has one forward for both.
 """
 
 from __future__ import annotations
@@ -115,13 +119,15 @@ class _FromTP(torch.autograd.Function):
 
 def to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     """``x`` entering a product whose weight is cut over the model axis."""
-    return _ToTP.apply(x, mesh)
+    return x if size(mesh) == 1 else _ToTP.apply(x, mesh)
 
 
 def from_tp(y: torch.Tensor, mesh, gates: int = 1) -> torch.Tensor:
     """The ranks' output columns ``y`` [..., gates·w] gathered into the
     whole [..., gates·TP·w]; with ``gates`` > 1 each rank's columns hold
     its slice of every gate (the strided cut), reordered gate by gate."""
+    if size(mesh) == 1:
+        return y
     out = _FromTP.apply(y, mesh)
     if gates == 1:
         return out
@@ -167,19 +173,13 @@ def model_axis(p: torch.Tensor):
 
 
 def layout(module: torch.nn.Module, name: str, p: torch.Tensor, tp: int):
-    """``(dim, gates)`` of the cut JAX's rule gives ``module``'s parameter
-    ``name`` at a model axis of ``tp``, or None where it is replicated."""
-    from ..models.networks import GRUCell, StackedGRUCell
-
-    if isinstance(module, (GRUCell, StackedGRUCell)):
-        gates = 1 if name == "bias_hn" else 3
-        H = p.shape[-1 if name.startswith("bias") else -2] // gates
-        if H % tp or (name.startswith("bias") and p.dim() == 1):
-            return None
-        return (p.dim() - 1 if name.startswith("bias") else p.dim() - 2), gates
-    if isinstance(module, torch.nn.Linear):
-        return (0, 1) if name == "weight" and p.shape[0] % tp == 0 else None
-    return (p.dim() - 1, 1) if p.dim() >= 2 and p.shape[-1] % tp == 0 else None
+    """``(dim, gates)`` of the cut ``module`` declares for its parameter
+    ``name`` (``tp_cuts``) where each gate's block divides by ``tp``, else
+    None: the parameter is replicated."""
+    cut = getattr(module, "tp_cuts", {}).get(name)
+    if cut is None or (p.shape[cut[0]] // cut[1]) % tp:
+        return None
+    return cut
 
 
 def shard_module_(module: torch.nn.Module, mesh) -> torch.nn.Module:
@@ -231,35 +231,14 @@ def _modules(ts) -> Dict[str, torch.nn.Module]:
             if isinstance(getattr(ts, f.name), torch.nn.Module)}
 
 
-def _adam_params(ts) -> Dict[str, list]:
-    """Each Adam state of a learner's state that follows networks → their
-    parameters, in the moments' order: ``opt_state`` the on-policy
-    ``ts.params()``, ``opt`` QMix's Q network and mixer, ``<x>_opt`` the
-    network ``x``.  The others (the SAC temperatures') follow no network,
-    so nothing of theirs is cut."""
-    from ..algos.optim import AdamState
-
+def _map_moments(ts, fn) -> Dict:
+    """Each Adam state of ``ts`` with ``fn(cut, moment)`` in place of every
+    moment of a cut parameter."""
     out = {}
-    for f in dataclasses.fields(ts):
-        if not isinstance(getattr(ts, f.name), AdamState):
-            continue
-        if f.name == "opt_state":
-            out[f.name] = ts.params()
-        elif f.name == "opt":
-            out[f.name] = [p for m in (ts.q, ts.mixer) if m is not None for p in m.parameters()]
-        elif isinstance(getattr(ts, f.name[:-len("_opt")], None), torch.nn.Module):
-            out[f.name] = list(getattr(ts, f.name[:-len("_opt")]).parameters())
-    return out
-
-
-def _map_moments(ts, params: Dict[str, list], fn) -> Dict:
-    from ..algos.optim import AdamState
-
-    out = {}
-    for name, ps in params.items():
+    for name, ps in ts.adam_params().items():
         st = getattr(ts, name)
         move = lambda ms: [m if cut_of(p) is None else fn(cut_of(p), m) for p, m in zip(ps, ms, strict=True)]
-        out[name] = AdamState(mu=move(st.mu), nu=move(st.nu), count=st.count)
+        out[name] = st._replace(mu=move(st.mu), nu=move(st.nu))
     return out
 
 
@@ -269,10 +248,9 @@ def shard_params_(ts, mesh):
     this rank's slices.  Returns ``ts``."""
     if size(mesh) == 1:
         return ts
-    params = _adam_params(ts)  # before the cut: the moments are whole
     for m in _modules(ts).values():
         shard_module_(m, mesh)
-    for name, st in _map_moments(ts, params, lambda cut, m: cut.local(m)).items():
+    for name, st in _map_moments(ts, lambda cut, m: cut.local(m)).items():
         setattr(ts, name, st)
     return ts
 
@@ -286,7 +264,7 @@ def whole_state(ts, mesh):
     out = copy.copy(ts)
     for name, m in _modules(ts).items():
         setattr(out, name, whole_module(m))
-    for name, st in _map_moments(ts, _adam_params(ts), lambda cut, m: cut.whole(m)).items():
+    for name, st in _map_moments(ts, lambda cut, m: cut.whole(m)).items():
         setattr(out, name, st)
     return out
 
@@ -294,10 +272,7 @@ def whole_state(ts, mesh):
 def held_bytes(ts) -> Dict[str, int]:
     """The bytes this rank holds of a training state's parameters (online
     and target networks) and Adam moments."""
-    from ..algos.optim import AdamState
-
     nets = sum(p.numel() * p.element_size() for m in _modules(ts).values() for p in m.parameters())
-    moments = sum(t.numel() * t.element_size() for f in dataclasses.fields(ts)
-                  if isinstance(getattr(ts, f.name), AdamState)
-                  for t in getattr(ts, f.name).mu + getattr(ts, f.name).nu)
+    moments = sum(t.numel() * t.element_size() for name in ts.adam_params()
+                  for t in getattr(ts, name).mu + getattr(ts, name).nu)
     return {"params": nets, "moments": moments}

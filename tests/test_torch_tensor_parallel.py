@@ -18,7 +18,9 @@
   names for one iteration; and every rank of a model group holding the same
   replicated leaves, bit for bit.
 - ``train --mesh 1,2`` and ``--mesh 2,2`` against ``--mesh 1``, their
-  checkpoints restored without a mesh and evaluated; the dry run on (2, 2).
+  checkpoints restored without a mesh and under the other TP mesh (held to
+  the ``--mesh 1`` checkpoint's restored iteration) and evaluated; the dry
+  run on (2, 2).
 
 Tolerances are those of ``tests/test_torch_parallel.py``: metrics rtol
 1e-6, parameters rtol 1e-6 with atol 1e-9 (float64: only the order of the
@@ -85,14 +87,16 @@ CLI = {
                "--set", "batch_size=16"],
 }
 MESHES = ("1", "1,2", "2,2")
+OTHER_MESH = {"1": "1", "1,2": "2,2", "2,2": "1,2"}  # the mesh a checkpoint is restored under
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The worker (W=1, TP=2 and DP=2 × TP=2), ``train --mesh`` 1, 1,2 and
     2,2 for mappo and maddpg (8 envs, 2 iterations, a checkpoint at the
-    end) and the dry run on 4 ranks; then, without ``--mesh``, each TP
-    checkpoint restored for one more iteration and evaluated."""
+    end) and the dry run on 4 ranks; then each TP checkpoint restored for
+    one more iteration without ``--mesh`` and under the other TP mesh, and
+    evaluated; the ``--mesh 1`` checkpoint restored under ``--mesh 1``."""
     root = tmp_path_factory.mktemp("tp")
     chains = [[(w, ["tests/_torch_tp_worker.py", str(root), w])] for w in ("dp2tp2", "tp2", "w1")]
     for algo, extra in CLI.items():
@@ -101,11 +105,13 @@ def runs(tmp_path_factory):
             steps = [((algo, mesh), ["-m", "gym_formation_tpu_torch.train", "--algo", algo, "--device", "cpu",
                                      "--mesh", mesh, "--num-envs", "8", "--iters", "2", "--log-every", "1",
                                      "--save-every", "2", "--run-dir", str(d), *extra])]
+            restore = ["-m", "gym_formation_tpu_torch.train", "--algo", algo, "--device", "cpu", "--num-envs",
+                       "8", "--iters", "1", "--save-every", "0", "--restore", "--run-dir", str(d), *extra]
             if mesh != "1":
-                steps += [((algo, mesh, "restore"), ["-m", "gym_formation_tpu_torch.train", "--algo", algo,
-                                                     "--device", "cpu", "--num-envs", "8", "--iters", "1",
-                                                     "--save-every", "0", "--restore", "--run-dir", str(d), *extra]),
-                          ((algo, mesh, "eval"), ["-m", "gym_formation_tpu_torch.eval", "--policy", "ckpt", "--algo",
+                steps += [((algo, mesh, "restore"), restore)]
+            steps += [((algo, mesh, "restore_mesh"), [*restore, "--mesh", OTHER_MESH[mesh]])]
+            if mesh != "1":
+                steps += [((algo, mesh, "eval"), ["-m", "gym_formation_tpu_torch.eval", "--policy", "ckpt", "--algo",
                                                   algo, "--ckpt", str(d / "ckpt"), "--episodes", "1", "--device",
                                                   "cpu"])]
             chains.append(steps)
@@ -210,10 +216,15 @@ def test_layout_equals_jax(name, n):
     cut = lambda d: sorted(p for p, (whole, part) in d.items() if whole != part)
     assert cut(got) == cut(want)
     assert got == want
-    # each cut leaf's Adam moments are cut alike
-    from gym_formation_tpu_torch.parallel import tensor
+    # every Adam state of the learner is named with its parameters, and
+    # each cut leaf's moments are cut alike
+    import dataclasses
 
-    for st_name, params in tensor._adam_params(ts).items():
+    from gym_formation_tpu_torch.algos.optim import AdamState
+
+    adam = ts.adam_params()
+    assert sorted(adam) == sorted(f.name for f in dataclasses.fields(ts) if isinstance(getattr(ts, f.name), AdamState))
+    for st_name, params in adam.items():
         st = getattr(ts, st_name)
         for p, m, v in zip(params, st.mu, st.nu, strict=True):
             assert m.shape == v.shape == p.shape
@@ -336,9 +347,9 @@ def test_train_mesh_tp_cli_equals_mesh_1(runs, algo, mesh):
     dp_size, tp_size = (int(x) for x in mesh.split(","))
     assert f"mesh: {{'data': {dp_size}, 'model': {tp_size}}} over {dp_size * tp_size} devices" in r.stdout
     assert "model all_gather" in r.stdout
-    assert len(want) == 2
+    assert len(want) == 3  # two iterations, then the restored third
     atol = 1e-6 if algo == "mappo" else 0.0  # float32 PPO losses: differences of nearly equal sums
-    for a, b in zip(want, got[:2], strict=True):
+    for a, b in zip(want[:2], got[:2], strict=True):
         assert a.keys() == b.keys()
         for k in a:
             if k != "wall":
@@ -359,6 +370,31 @@ def test_tp_checkpoint_is_whole_restores_unsharded_and_evaluates(runs, algo, mes
     r = runs[algo, mesh, "eval"]
     assert r.returncode == 0, r.stderr[-3000:]
     assert "return" in r.stdout.lower()
+
+
+@pytest.mark.parametrize("algo,mesh", [(a, m) for a in CLI for m in MESHES[1:]])
+def test_tp_checkpoint_restores_under_another_mesh(runs, algo, mesh):
+    """A TP run's checkpoint, restored without a mesh and under the other
+    TP mesh, runs its third iteration as the ``--mesh 1`` checkpoint
+    restored under ``--mesh 1`` does."""
+    for key in ((algo, "1", "restore_mesh"), (algo, mesh, "restore"), (algo, mesh, "restore_mesh")):
+        assert runs[key].returncode == 0, runs[key].stderr[-3000:]
+        assert "restored checkpoint at iteration 2" in runs[key].stdout
+    other = OTHER_MESH[mesh]
+    dp_size, tp_size = (int(x) for x in other.split(","))
+    assert f"mesh: {{'data': {dp_size}, 'model': {tp_size}}}" in runs[algo, mesh, "restore_mesh"].stdout
+    # the restored whole state is cut to the rank's slices as a fresh one is
+    held = lambda r: [line for line in r.stdout.splitlines() if line.startswith("held a rank:")]
+    assert held(runs[algo, mesh, "restore_mesh"]) == held(runs[algo, other]) != []
+    _, (*_, want) = _rows(runs, algo, "1")
+    _, got = _rows(runs, algo, mesh)
+    assert len(got) == 4  # two iterations, then a third without a mesh and under the other mesh
+    atol = 1e-6 if algo == "mappo" else 0.0
+    for row in got[2:]:
+        assert row["step"] == want["step"] and row.keys() == want.keys()
+        for k in want:
+            if k != "wall":
+                np.testing.assert_allclose(row[k], want[k], rtol=1e-6, atol=atol, err_msg=k)
 
 
 def test_dryrun_multichip_on_two_by_two(runs):

@@ -5,7 +5,8 @@
 
 Runs ``python -m gym_formation_tpu_torch.train`` once for each mesh, a
 ``DP`` or ``DP,TP`` entry (one card a rank with nccl; ``--device cpu``:
-gloo), logging every iteration, and reads its ``metrics.jsonl``: the
+gloo; entries are separated by spaces, so ``--meshes 1 4`` runs DP 1 and
+DP 4 and ``--meshes 1,4`` one mesh of DP 1 × TP 4), logging every iteration, and reads its ``metrics.jsonl``: the
 training env-steps/s is the env steps of the iterations after the first
 over their wall (the logger's clock, each row closed by a host fetch of the
 metrics).  Beside it the collectives' calls (the model axis's where TP > 1)
