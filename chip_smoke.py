@@ -90,8 +90,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    set_reward_impl("rowmajor") (K7 once a step, K2 never); per-step rewards
    against the default selectors' from the same states; env-steps/s; K8's
    and K7's times at the paths' shapes.  The selectors are restored after.
-19. The other scenarios: basic_formation_env (N=3, ezpolicy) and the two
-   partial scenarios (N=27, the linear policy) at B=4096, K1 once a step.
+19. The other scenarios: the two partial scenarios (N=27, the linear
+   policy) at B=4096, K1 once a step (basic_formation_env N=3 is the
+   bench's row 3, phase 42).
 20. K1 and K2 against their plain versions at the N=3 paths' shape (the hd
    colliding subset of 3 agents) at B=32 (the off-policy zoo), 128 and 512:
    random states, pairs in exact contact, at K2's threshold and at zero
@@ -209,6 +210,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    rank's held parameter and moment bytes against the whole, the model
    axis's collectives' calls and ms an iteration (CUDA events) and the
    training env-steps/s of TP=2 and one process.
+
+42. The bench and the graft entry: ``python -m
+   gym_formation_tpu_torch.bench`` with no arguments in its own process
+   (three JSON lines in SUITE order with emit's keys and the rows'
+   metrics, finite rates > 0) and its row 2 under ``--mesh 1`` (an nccl
+   world of one rank, 2 chunks); each SUITE row again through ``bench.run``
+   in this process (2 chunks a window, one window) with its launches
+   counted: row 1 K4 once a chunk and nothing else, row 2 K3 once a step
+   and the masked K2 once a step and once a chunk with neither K1 nor the
+   PyTorch BFS, row 3 K1 once a step; ``--fused on`` at n=5 refused with
+   no launch; K1 against its plain version at row 3's configuration
+   (basic_formation N=3, agents of size 0.1, B=4096: the row's seed-0
+   reset, exact contact, deep penetration, zero distance, all in contact;
+   atol = rtol = 1e-3, two launches bit for bit); ``graft_entry.entry()``'s forward (MAPPO at N=9, 64 envs) on
+   the card against the CPU within atol = rtol = 1e-5.
 
 Each path is driven with every launch counter set to 0 just before it and
 read just after.
@@ -738,25 +754,6 @@ def take(state, sl):
     return type(state)(*(getattr(state, f.name)[sl] for f in dataclasses.fields(state)))
 
 
-def linear_policy(obs_dim, act_dim, dev, seed=7):
-    """bench.py's generic obs consumer: clip(obs @ W, -1, 1), W drawn from a
-    seeded normal and scaled by 1/sqrt(obs_dim)."""
-    W = np.random.RandomState(seed).normal(size=(obs_dim, act_dim)) / np.sqrt(obs_dim)
-    W = torch.as_tensor(W, dtype=torch.float32, device=dev)
-    return lambda obs: torch.clamp(obs @ W, -1.0, 1.0)
-
-
-def obs_steps(venv, policy, state, obs, steps):
-    """``steps`` env steps under an observation policy, keeping only each
-    env's reward sum (no StepOut is kept).  Returns (state, obs, sums)."""
-    rs = torch.zeros(venv.num_envs, device=state.pos.device)
-    for _ in range(steps):
-        state, out = venv.step(state, policy(obs))
-        obs = out.obs
-        rs = rs + out.reward.sum(-1)
-    return state, obs, rs
-
-
 def hd_obs_cfgs(n):
     """(scenario, colliding-subset cfg, subset indices) of formation_hd_obs_env."""
     import gym_formation_tpu_torch as gt
@@ -893,6 +890,7 @@ def hd_obs_small_check(dev):
     within an episode) under the linear policy: the card (K6) against the
     CPU's plain path, at the step slice's tolerances."""
     import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch import bench
 
     n, B, T = 27, 3, 8
     env = gt.make_env("formation_hd_obs_env", num_agents=n)
@@ -904,13 +902,14 @@ def hd_obs_small_check(dev):
               ideal_vel=np.zeros((B, 2)), t=np.zeros(B, np.int32))
     out = {}
     for d in ("cuda", "cpu"):
-        policy = linear_policy(env.scenario.obs_dim, env.act_dim, torch.device(d), seed=3)
+        policy = bench.make_policy("linear", env, d, W=bench.linear_weights(env.scenario.obs_dim, env.act_dim, d,
+                                                                           seed=3))
         g = torch.Generator(device=d)
         s = env.scenario.pre_obs(gt.state_from_numpy(st, device=d))
         obs = env.scenario.observe(s)
         rews = []
         for _ in range(T):
-            s, o = env.step(s, policy(obs), g)
+            s, o = env.step(s, policy(obs, g), g)
             obs = o.obs
             rews.append(o.reward)
         out[d] = (s.pos.cpu(), s.vel.cpu(), torch.stack(rews).cpu())
@@ -927,18 +926,19 @@ def phase_hd_obs(dev, kmods):
     """The hd_obs path: formation_hd_obs_env at N=243, B=4096 (4 targets, 3
     obstacles), 128 steps of the linear policy with world_length 50."""
     import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch import bench
     from gym_formation_tpu_torch.ops.kernels import pairforce as k6
 
     venv = gt.make_vec_env("formation_hd_obs_env", num_envs=NUM_ENVS, num_agents=NUM_AGENTS,
                            device=dev, seed=0, world_length=50)
     scen = venv.env.scenario
-    policy = linear_policy(scen.obs_dim, venv.env.act_dim, dev)
+    policy = bench.make_policy("linear", venv.env, dev)
     state, obs = venv.reset()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*kmods)
     t0 = time.perf_counter()
-    state, obs, rsum = obs_steps(venv, policy, state, obs, STEPS)
+    state, obs, rsum = bench.obs_chunk(venv.env, state, obs, venv.generator, STEPS, policy)
     rsum_host = rsum.cpu()
     first_run_s = time.perf_counter() - t0
     counts = launch_counts(kmods)
@@ -959,7 +959,7 @@ def phase_hd_obs(dev, kmods):
 
     def window():
         nonlocal state, obs
-        state, obs, rs = obs_steps(venv, policy, state, obs, WINDOW)
+        state, obs, rs = bench.obs_chunk(venv.env, state, obs, venv.generator, WINDOW, policy)
         return rs
 
     rate = throughput(window, NUM_ENVS, WINDOW, f"hd_obs path N={NUM_AGENTS} B={NUM_ENVS}")
@@ -976,11 +976,11 @@ def phase_hd_obs(dev, kmods):
 
     small = gt.make_vec_env("formation_hd_obs_env", num_envs=NUM_ENVS, num_agents=27, device=dev, seed=1)
     s27, o27 = small.reset()
-    p27 = linear_policy(small.env.scenario.obs_dim, small.env.act_dim, dev)
+    p27 = bench.make_policy("linear", small.env, dev)
 
     def window27():
         nonlocal s27, o27
-        s27, o27, rs = obs_steps(small, p27, s27, o27, WINDOW)
+        s27, o27, rs = bench.obs_chunk(small.env, s27, o27, small.generator, WINDOW, p27)
         return rs
 
     throughput(window27, NUM_ENVS, WINDOW, f"hd_obs path N=27 B={NUM_ENVS}")
@@ -1074,31 +1074,30 @@ def phase_selectors(dev, kmods):
 
 
 def phase_other_scenarios(dev, kmods):
-    """basic_formation_env (N=3, ezpolicy, bench.py's SUITE row) and the two
-    partial scenarios (N=27, the linear policy) at B=4096: K1 once a step,
-    finite rewards, env-steps/s."""
+    """The two partial scenarios (N=27, the linear policy) at B=4096: K1
+    once a step, finite rewards, env-steps/s.  basic_formation_env, the
+    bench's SUITE row 3, is driven and counted in phase 42."""
     import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch import bench
 
-    for name, n, pol in (("basic_formation_env", 3, "ezpolicy"),
-                         ("formation_hd_partial_env", 27, "linear"),
-                         ("formation_hd_partial_range_env", 27, "linear")):
+    n = 27
+    for name in ("formation_hd_partial_env", "formation_hd_partial_range_env"):
         venv = gt.make_vec_env(name, num_envs=NUM_ENVS, num_agents=n, device=dev, seed=0)
-        policy = (gt.ezpolicy_batched if pol == "ezpolicy" else
-                  linear_policy(venv.env.scenario.obs_dim, venv.env.act_dim, dev))
+        policy = bench.make_policy("linear", venv.env, dev)
         state, obs = venv.reset()
         torch.cuda.synchronize()
         reset_counts(*kmods)
-        state, obs, rs = obs_steps(venv, policy, state, obs, WINDOW)
+        state, obs, rs = bench.obs_chunk(venv.env, state, obs, venv.generator, WINDOW, policy)
         rs_host = rs.cpu()
         counts = launch_counts(kmods)
         require(counts["pairforce_sym"] == WINDOW, f"{name}: K1 not once a step ({counts})")
         require(bool(torch.isfinite(rs_host).all()), f"{name}: non-finite reward sums")
-        print(f"{name} N={n} B={NUM_ENVS} {pol}: launches in {WINDOW} steps {counts}, "
+        print(f"{name} N={n} B={NUM_ENVS} linear: launches in {WINDOW} steps {counts}, "
               f"reward sum per env mean {float(rs_host.mean()):.4f}")
 
         def window():
             nonlocal state, obs
-            state, obs, r = obs_steps(venv, policy, state, obs, WINDOW)
+            state, obs, r = bench.obs_chunk(venv.env, state, obs, venv.generator, WINDOW, policy)
             return r
 
         throughput(window, NUM_ENVS, WINDOW, f"{name} N={n} B={NUM_ENVS}")
@@ -2391,6 +2390,154 @@ def phase_tensor_parallel(dev, card, dp_ref):
           f"processes' start)")
 
 
+# -- the bench and the graft entry ---------------------------------------------------
+BENCH_TIMEOUT = 600  # seconds for the no-args bench in its own process (about 1 minute expected)
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "windows", "min", "max"]
+
+
+def bench_row3_k1(dev, args):
+    """K1 against its plain version at the bench's row 3 (basic_formation_env,
+    N=3, agents of size 0.1, B=4096): the row's own first positions (its
+    seed-0 reset), pairs in exact contact (0.2 apart), in deep penetration
+    (0.05 apart) and at zero distance, and all agents in contact; atol =
+    rtol = 1e-3 and two launches bit for bit, as phase 3.  Returns the
+    largest error."""
+    import gym_formation_tpu_torch as gt
+    from gym_formation_tpu_torch.core.physics import _collide_subset
+    from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
+
+    env = gt.make_env(args.scenario, num_agents=args.num_agents)
+    lo, hi, _, cfg = _collide_subset(env.cfg)
+    p = k1._params(cfg)
+    require(abs(p["dmin"] - 0.2) < 1e-12, f"bench row 3: K1's contact distance {p['dmin']}, want 2 x 0.1")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    own = env.reset_state(g, args.num_envs).pos[:, lo:hi].contiguous()
+    B, n = own.shape[:2]
+    rng = np.random.RandomState(42)
+    contact = own.cpu().numpy().astype(np.float64)
+    third = B // 3
+    contact[:third, 1] = contact[:third, 0] + [0.2, 0.0]  # exact contact
+    contact[third:2 * third, 1] = contact[third:2 * third, 0] + [0.0, 0.05]  # deep penetration
+    contact[2 * third:, 2] = contact[2 * third:, 1]  # zero distance
+    err = 0.0
+    for label, pos in (("the row's reset", own), ("contact", contact),
+                       ("all in contact", rng.uniform(-0.05, 0.05, (B, n, 2)))):
+        pos = torch.as_tensor(pos, dtype=torch.float32, device=dev).contiguous()
+        got = k1.collision_forces_sym(pos, cfg)
+        want = k1.collision_forces_sym_plain(pos, **p)
+        again = k1.collision_forces_sym(pos, cfg)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(got).all()), f"K1 bench row 3 {label}: non-finite forces")
+        err = max(err, check_close(got, want, 1e-3, 1e-3, f"K1 bench row 3 {label}"))
+        require(torch.equal(got, again), f"K1 bench row 3 {label}: two launches differ")
+        if label != "the row's reset":
+            require(float(want.abs().max()) > 0, f"K1 bench row 3 {label}: no contact force")
+        print(f"K1 bench row 3 ({args.scenario} N={n}, size 0.1) {label} B={B}: max abs err "
+              f"{max_err(got, want):.3e} (atol=rtol=1e-3), two launches bit for bit")
+    return err
+
+
+def phase_bench(dev, kmods, card):
+    """Phase 42: ``python -m gym_formation_tpu_torch.bench`` with no
+    arguments in its own process (three JSON lines in SUITE order, emit's
+    keys, the metrics the SUITE's rows compose, finite rates > 0), and
+    its row 2 under ``--mesh 1`` (an nccl world of one rank); each
+    SUITE row once more through ``bench.run`` in this process at 2 chunks a
+    window and one window, its launches counted (row 1 K4 once a chunk;
+    row 2 K3 once a step and the masked K2 once a step and once a chunk,
+    never K1 nor the PyTorch BFS; row 3 K1 once a step); ``--fused on`` at
+    n=5 refused; K1 against its plain version at row 3's configuration
+    (:func:`bench_row3_k1`); ``graft_entry.entry()``'s forward on the card
+    against the CPU.  Returns the rows' rates and launches and K1's
+    largest error."""
+    import contextlib
+    import io
+
+    from gym_formation_tpu_torch import bench
+    from gym_formation_tpu_torch.graft_entry import entry
+    from gym_formation_tpu_torch.models import bfs
+
+    defaults = bench.build_parser().parse_args([])
+    suite = bench.rows(defaults, [])
+    want = [bench.metric_of(a, bench.uses_k4(a, dev)) for a in suite]
+    stdout, wall = run_entry(["gym_formation_tpu_torch.bench"], "bench", timeout=BENCH_TIMEOUT)
+    lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    require([line.get("metric") for line in lines] == want, f"bench: lines {lines}, want the metrics {want}")
+    for line in lines:
+        require(list(line) == BENCH_KEYS, f"bench: keys {list(line)}")
+        vals = [line[k] for k in ("value", "vs_baseline", "min", "max")]
+        require(all(np.isfinite(v) and v > 0 for v in vals) and line["windows"] == defaults.windows,
+                f"bench: {line}")
+    print(f"bench, no arguments: {len(lines)} rows in {wall:.2f} s (process and kernel load included); {card}")
+    # the --mesh branch: an nccl world of 1 on the sharded fused route
+    mesh_args = ["--mesh", "1", "--num-agents", "243", "--policy", "bfs_state", "--iters", "2", "--windows", "1"]
+    stdout, wall = run_entry(["gym_formation_tpu_torch.bench", *mesh_args], "bench --mesh 1", timeout=BENCH_TIMEOUT)
+    mesh_lines = [json.loads(line) for line in stdout.splitlines() if line.startswith("{")]
+    require(len(mesh_lines) == 1 and mesh_lines[0]["metric"] == want[1] and mesh_lines[0]["value"] > 0,
+            f"bench --mesh 1: {mesh_lines}")
+
+    T = defaults.chunk
+    out = {"rates": [line["value"] for line in lines], "launches": []}
+    for i, a in enumerate(suite):
+        a.iters, a.windows = 2, 1
+        chunks = 1 + a.windows * (max(a.iters, 64) if i == 0 else a.iters)
+        expand = []
+        orig = bfs._expand
+        bfs._expand = lambda *args, **kw: expand.append(1) or orig(*args, **kw)
+        torch.cuda.synchronize()
+        reset_counts(*kmods)
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                res = bench.run(None, a)
+        finally:
+            bfs._expand = orig
+        counts = launch_counts(kmods)
+        counts["bfs_expand"] = len(expand)
+        print(f"bench row {i + 1} in this process, {chunks} chunks of {T} steps: launches {counts}; "
+              f"{buf.getvalue().strip()}")
+        require(all(np.isfinite(res["sums"])) and all(r > 0 for r in res["rates"]), f"bench row {i + 1}: {res}")
+        if i == 0:
+            want_counts = {"fused_rollout": chunks}
+        elif i == 1:
+            want_counts = {"fused_step": chunks * T, "reward_sym": chunks * (T + 1), "pairforce_sym": 0,
+                           "bfs_expand": 0}
+        else:
+            want_counts = {"pairforce_sym": chunks * T, "fused_step": 0, "fused_rollout": 0}
+        for name, n in want_counts.items():
+            require(counts[name] == n, f"bench row {i + 1}: {name} {counts[name]} launches, want {n}")
+        if i == 0:
+            require(sum(counts.values()) == chunks, f"bench row 1 launched other kernels: {counts}")
+        out["launches"].append(counts)
+
+    refused = bench.build_parser().parse_args(["--fused", "on", "--num-agents", "5", "--num-envs", "512",
+                                               "--chunk", "2", "--iters", "1", "--windows", "1"])
+    reset_counts(*kmods)
+    try:
+        bench.run(None, refused)
+        raised = None
+    except ValueError as e:
+        raised = str(e)
+    require(raised is not None and "K4 is built for n" in raised, f"--fused on at n=5 on the card: {raised}")
+    require(sum(launch_counts(kmods).values()) == 0, "--fused on at n=5 launched a kernel")
+    print(f"bench --fused on --num-agents 5: refused ({raised})")
+    out["k1_err"] = bench_row3_k1(dev, suite[2])
+
+    fn, (params, obs) = entry()
+    require(obs.is_cuda and all(p.is_cuda for v in params.values() for p in v.values()), "entry: not on the card")
+    with torch.no_grad():
+        mean, value = fn(params, obs)
+        cmean, cvalue = fn({k: {m: p.cpu() for m, p in v.items()} for k, v in params.items()}, obs.cpu())
+    require(tuple(mean.shape) == (64, 9, 2) and tuple(value.shape) == (64,),
+            f"entry: shapes {tuple(mean.shape)}, {tuple(value.shape)}")
+    e_mean = check_close(mean.cpu(), cmean, 1e-5, 1e-5, "entry mean, card against CPU")
+    e_value = check_close(value.cpu(), cvalue, 1e-5, 1e-5, "entry value, card against CPU")
+    print(f"entry ok: {tuple(mean.shape)}, {tuple(value.shape)}; card against CPU max abs err mean "
+          f"{e_mean:.3e}, value {e_value:.3e}")
+    return out
+
+
 def main() -> int:
     # -- 1. environment --------------------------------------------------
     phase("environment")
@@ -2869,6 +3016,11 @@ def main() -> int:
     # -- 41. tensor parallel ----------------------------------------------------------
     phase("tensor parallel: a gloo world of 2 on the mesh {'data': 1, 'model': 2} on the one card")
     phase_tensor_parallel(dev, smi.stdout.strip().splitlines()[0], dp_ref)
+
+    # -- 42. the bench and the graft entry ----------------------------------------------
+    phase("bench SUITE and graft entry")
+    bench_res = phase_bench(dev, kmods, smi.stdout.strip().splitlines()[0])
+    k1_err = max(k1_err, bench_res["k1_err"])
 
     # bounds from this run's shapes (see bound())
     B, N, E6 = NUM_ENVS, NUM_AGENTS, obs_res["E"]

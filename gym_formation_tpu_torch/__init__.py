@@ -25,7 +25,8 @@ list and dict wrappers (:class:`GymMultiAgentEnv`, :class:`DictAgentEnv`),
 gym_formation_tpu_torch.demo``; data parallelism over ``torch.distributed``
 (:mod:`.parallel`: ``train --mesh DP``, ``--multihost``,
 :func:`rollout_statepolicy_fused_sharded`, ``python -m
-gym_formation_tpu_torch.graft_entry``).
+gym_formation_tpu_torch.graft_entry`` with the flagship forward ``entry()``);
+the headline benchmark ``python -m gym_formation_tpu_torch.bench``.
 
 Entry points that place tensors (:func:`make_vec_env`,
 :class:`VecFormationEnv`, the wrappers, :func:`get_action_BFS`,

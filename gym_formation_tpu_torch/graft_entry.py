@@ -1,9 +1,12 @@
-"""A multi-process dry run of the training programs over a data × model mesh.
+"""The flagship model's forward, and a multi-process dry run of the training
+programs over a data × model mesh.
 
     python -m gym_formation_tpu_torch.graft_entry [N] [--device cpu]
 
-Counterpart of the JAX package's ``__graft_entry__.py: dryrun_multichip``:
-N ranks (default: every visible card; one card each with ``nccl``, or the
+Counterpart of the JAX package's ``__graft_entry__.py``.  :func:`entry`
+returns the forward of the MAPPO actor-critic at N=9 over 64 envs and its
+example arguments; ``main`` runs it once and prints its output shapes
+(``entry ok:``), then the dry run.  :func:`dryrun_multichip` spawns N ranks (default: every visible card; one card each with ``nccl``, or the
 CPU with ``gloo`` under ``--device cpu``) each run one training iteration of
 the three programs at its shapes, on the JAX package's mesh: ``(N/2, 2)``
 for an even N (the env batch split over N/2 data ranks, the networks' wide
@@ -24,12 +27,38 @@ import argparse
 import math
 
 import torch
+from torch.func import functional_call
 
 import gym_formation_tpu_torch as gt
-from gym_formation_tpu_torch import parallel
-from gym_formation_tpu_torch.algos import make_algo
+from gym_formation_tpu_torch import _device, parallel
+from gym_formation_tpu_torch.algos import MAPPO, MAPPOConfig, make_algo
 from gym_formation_tpu_torch.parallel import mesh as dp
 from gym_formation_tpu_torch.parallel import tensor
+
+
+def entry(device="cuda"):
+    """``(forward, (params, obs))``: the forward of the flagship model, the
+    MAPPO actor-critic (default :class:`MAPPOConfig`) over a batch of 64
+    formation_hd_env envs at N=9 (a 2-layer hierarchy of 3), on ``device``
+    (the card unless ``"cpu"``).  ``params`` is ``{"actor": {name: tensor},
+    "critic": {...}}`` and ``obs`` [64, 9, 54] the first observations;
+    ``forward(params, obs)`` gives the actor's mean [64, 9, 2] and the
+    critic's value [64] of ``obs.reshape(64, -1)``."""
+    dev = _device.resolve(device)
+    algo = MAPPO(gt.make_env("formation_hd_env", num_agents=9), MAPPOConfig(), num_envs=64, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    ts, _, obs = algo.init(g)
+    actor, critic = ts.actor, ts.critic
+
+    def forward(params, obs):
+        mean, _ = functional_call(actor, params["actor"], (obs,))
+        value = functional_call(critic, params["critic"], (obs.reshape(obs.shape[0], -1),))
+        return mean, value
+
+    params = {k: {name: p.detach() for name, p in net.named_parameters()}
+              for k, net in (("actor", actor), ("critic", critic))}
+    return forward, (params, obs)
 
 
 def _report(mesh, label: str, metrics) -> None:
@@ -103,6 +132,10 @@ def main(argv=None) -> None:
     n = args.n if args.n is not None else torch.cuda.device_count()
     if n < 1:
         raise SystemExit("no CUDA device: pass N and --device cpu to run on the CPU")
+    fn, (params, obs) = entry(args.device)
+    with torch.no_grad():
+        out = fn(params, obs)
+    print("entry ok:", tuple(tuple(t.shape) for t in out), flush=True)
     dryrun_multichip(n, args.device)
 
 

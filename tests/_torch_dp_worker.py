@@ -1,7 +1,8 @@
 """The runs that ``tests/test_torch_parallel.py`` compares: each learner
 family and the sharded fused rollout, once in this process without a mesh
 (W=1) and once in a world of 2 ranks on the CPU (``gloo``, W=2), from the
-same seeds; plus the parallel helpers' round trips inside the world.
+same seeds; the bench's rows; plus the parallel helpers' round trips
+inside the world.
 
     python tests/_torch_dp_worker.py OUT_DIR
     python tests/_torch_dp_worker.py --fail-rank-1   # rank 1 raises: the world fails
@@ -93,6 +94,35 @@ def fused_rollout(mesh):
     return parallel.host_local_to_global(st, mesh), parallel.host_local_to_global(rew.T, mesh).T
 
 
+def bench_rows(mesh):
+    """The bench (``gym_formation_tpu_torch.bench``) at tiny shapes on the
+    CPU: its bfs_state chunk on the step path and on the fused route
+    (N=9, B=8, 5 steps, episodes of 3: a reset crossed), each env's reward
+    sum gathered; and ``bench.run`` of the bfs_state (fused), ezpolicy and
+    random rows as ``--mesh 2 --device cpu`` runs them on each rank, the
+    global reward sums its windows fetched."""
+    from gym_formation_tpu_torch import bench
+
+    out = {}
+    for kernel in (None, "bfs_ez"):
+        env = gt.make_env("formation_hd_env", num_agents=9, episode_length=3, mesh=mesh)
+        g = torch.Generator()
+        g.manual_seed(2)
+        whole = gt.make_env("formation_hd_env", num_agents=9, episode_length=3).reset_state(g, B)
+        pol = bench.make_policy("bfs_state", env, "cpu", mesh)
+        _, rs = bench.statepolicy_chunk(env, parallel.shard_batch(whole, mesh), g, 5, pol, kernel, mesh)
+        if kernel is not None:  # each env's steps summed along a contiguous row, as on one process
+            rs = rs.T.contiguous().sum(-1)
+        out[f"chunk_{kernel}"] = parallel.host_local_to_global(rs, mesh)
+    for policy, n in (("bfs_state", 9), ("ezpolicy", 3), ("random", 3)):
+        argv = ["--device", "cpu", "--policy", policy, "--num-agents", str(n), "--num-envs", str(B), "--chunk", "4",
+                "--iters", "2", "--windows", "2", "--step-kernel", "fused"]
+        if mesh is not None:
+            argv += ["--mesh", str(dp.size(mesh))]
+        out[f"run_{policy}"] = bench.run(mesh, bench.build_parser().parse_args(argv))["sums"]
+    return out
+
+
 def helpers(mesh):
     """The round trips of shard_batch, host_local_to_global and
     replicate_global in the world."""
@@ -122,6 +152,7 @@ def helpers(mesh):
 def run_all(mesh):
     out = {name: train(name, mesh) for name in FAMILIES}
     out["fused_rollout"] = fused_rollout(mesh)
+    out["bench"] = bench_rows(mesh)
     if mesh is not None:
         out["helpers"] = helpers(mesh)
     return out

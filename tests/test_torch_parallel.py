@@ -9,7 +9,7 @@ MAPPO (autograd with two minibatches; K5 and K9's plain versions with the
 env offset and the global counts; structured at N=33 with ``grad_accum``),
 RMAPPO, MADDPG, MASAC, QMIX and RQMIX, each in a world of 2 beside one
 process (``tests/_torch_dp_worker.py``, one launch for all of them); the
-sharded fused rollout; ``train --mesh`` and its checkpoint; the dry run;
+sharded fused rollout; the bench's ``--mesh`` rows; ``train --mesh`` and its checkpoint; the dry run;
 the helpers; the mesh arguments' errors.
 
 Tolerances: metrics rtol 1e-6 (``tests/test_sharding.py``'s own), on-policy
@@ -164,6 +164,27 @@ def test_sharded_fused_rollout_equals_unsharded_bit_for_bit(worlds):
     assert bool((s1.t == 8 - 5).all())  # every env reset at step 5
 
 
+@pytest.mark.parametrize("kernel", ["None", "bfs_ez"])
+def test_bench_mesh_chunk_equals_unsharded_bit_for_bit(worlds, kernel):
+    """The bench's bfs_state chunk (the step path, and the fused route with
+    K3's and the masked K2's plain versions) on each rank's rows, a reset
+    crossed: every env's reward sum equals one process's."""
+    w1, r0, r1 = (w["bench"][f"chunk_{kernel}"] for w in worlds)
+    assert w1.shape == (8,)
+    assert torch.equal(r0, w1) and torch.equal(r1, w1)
+
+
+@pytest.mark.parametrize("policy", ["bfs_state", "ezpolicy", "random"])
+def test_bench_mesh_run_equals_unsharded(worlds, policy):
+    """``bench.run`` under ``--mesh 2 --device cpu``: the global reward sum
+    each window fetched (an all_reduce of the ranks' sums) is one process's
+    up to the order of the float32 sums (rtol 1e-6), and the same on both
+    ranks."""
+    w1, r0, r1 = (w["bench"][f"run_{policy}"] for w in worlds)
+    assert len(w1) == 2 and r0 == r1
+    np.testing.assert_allclose(r0, w1, rtol=1e-6)
+
+
 # -- the kernels' data-parallel arguments (plain versions) --------------------------
 
 def _k5_inputs(B, seed=0):
@@ -314,6 +335,7 @@ def test_mesh_checkpoint_restores_unsharded_and_evaluates(cli_runs, algo):
 def test_dryrun_multichip_two_ranks_on_the_cpu():
     r = run(["-m", "gym_formation_tpu_torch.graft_entry", "2", "--device", "cpu"], timeout=240)
     assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("entry ok: ((64, 9, 2), (64,))\n")  # entry()'s forward, before the dry run
     for label in ("mappo", "maddpg", "mappo-n243-structured"):
         assert f"dryrun_multichip {label} ok: mesh={{'data': 1, 'model': 2}}" in r.stdout
 
