@@ -31,12 +31,14 @@ restore under any mesh whose DP divides the batch, or none.  Every ``--log-every
 of metrics goes to ``<run-dir>/metrics.jsonl``; every ``--save-every``
 iterations the whole training tuple goes to ``<run-dir>/ckpt/``, an
 off-policy learner's replay buffer included.  The run ends with the
-``mean_step_reward`` curve in ``<run-dir>/mean_step_reward.png``.
+``mean_step_reward`` curve in ``<run-dir>/mean_step_reward.png`` and a line
+``kernel launches: {...}`` with the process's launches of each kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -45,6 +47,7 @@ import torch
 import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch import parallel
 from gym_formation_tpu_torch.algos import ALGO_NAMES, DISCRETE_ONLY, EPISODIC, ONPOLICY, make_algo
+from gym_formation_tpu_torch.ops import kernels
 from gym_formation_tpu_torch.parallel import mesh as dp
 from gym_formation_tpu_torch.parallel import tensor
 from gym_formation_tpu_torch.utils import MetricsLogger, latest_step, restore_checkpoint, save_checkpoint
@@ -220,6 +223,8 @@ def run(mesh, args) -> None:
     if lead:
         logger.plot("mean_step_reward")
         logger.close()
+        # this process's launches of each kernel (0 on the CPU: plain versions)
+        print(f"kernel launches: {json.dumps({k: getattr(kernels, k).launches for k in kernels.__all__})}")
         print(f"done -> {run_dir}")
 
 
