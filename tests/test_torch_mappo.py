@@ -6,6 +6,9 @@
 - ``_gae``, ``ValueNorm.update`` and ``_prepare`` on one trajectory, and
   ``_update`` (3 epochs; one minibatch, and two with the JAX permutation
   passed in) in float64;
+- eight iterations in lockstep with JAX: ``_collect`` on JAX's actions,
+  and ``_prepare`` + ``_update`` carrying the value norm and Adam across
+  iterations and an episode end;
 - the slice as a whole: one ``train_step`` with K5 and K9 (their plain
   versions here, the JAX Pallas kernels in interpret mode) from the same
   networks, env state and K5 seed;
@@ -245,6 +248,43 @@ def test_fully_fused_train_step_matches_jax():
     np.testing.assert_allclose(float(m_t["v_loss"]), float(m_j["v_loss"]), rtol=1e-3)
     np.testing.assert_allclose(float(m_t["mean_step_reward"]), float(m_j["mean_step_reward"]), rtol=1e-4)
     assert obs.shape == (32, 3, 18) and int(es.t[0]) == 8
+
+
+def test_iterations_in_lockstep_with_jax():
+    """Eight iterations of B=32, T=25 on episodes of 100 (every fourth
+    collection ends the episodes), JAX collecting: the port's _collect on
+    JAX's actions and env state gives JAX's trajectory (float32, 1e-4), and
+    its _prepare + _update on JAX's trajectory carry the value norm and
+    Adam across the iterations as JAX does (float64, 1e-12)."""
+    jalgo = JMAPPO(_jenv(), JMAPPOConfig(), num_envs=32)
+    ts_j, es_j, obs_j = jalgo.init(jax.random.PRNGKey(1))
+    ts_j = ts_j.replace(params=_f64(ts_j.params))
+    ts_j = ts_j.replace(opt_state=jalgo.tx.init(ts_j.params))
+    collect, prepare, update = (jax.jit(f) for f in (jalgo._collect, jalgo._prepare, jalgo._update))
+    talgo = MAPPO(_tenv(), MAPPOConfig(), num_envs=32, device="cpu", dtype=F64)
+    ts = talgo.state_from_flax(_np(ts_j.params))
+    replay = MAPPO(_tenv(), MAPPOConfig(), num_envs=32, device="cpu")
+    key = jax.random.PRNGKey(5)
+    for _ in range(8):
+        key, k1, k2 = jax.random.split(key, 3)
+        state0, obs0 = _np(es_j), np.array(obs_j)
+        es_j, obs_j, traj, _, last = collect(ts_j, es_j, obs_j, k1)
+        acts = iter(torch.as_tensor(np.array(a), dtype=torch.float32) for a in traj["action"])
+        replay._dist_sample = lambda g, dist: next(acts)
+        with torch.no_grad():
+            _, _, got, _, _ = replay._collect(replay.state_from_flax(_np(ts_j.params)), gt.state_from_numpy(state0),
+                                              torch.as_tensor(obs0, dtype=torch.float32), torch.Generator())
+        for k in ("obs", "logp", "value", "reward", "done"):
+            np.testing.assert_allclose(got[k].numpy(), np.asarray(traj[k]), rtol=0, atol=1e-4, err_msg=k)
+        ts_j, data_j = prepare(ts_j, traj, last)
+        ts_j, _ = update(ts_j, data_j, k2)
+        ttraj = {k: torch.as_tensor(np.array(v)) for k, v in traj.items()}
+        ttraj = {k: v.to(F64) if v.is_floating_point() else v for k, v in ttraj.items()}
+        ts, data = talgo._prepare(ts, ttraj, torch.as_tensor(np.array(last), dtype=F64))
+        ts, _ = talgo._update(ts, data)
+        _assert_trees(_params_tree(ts), ts_j.params, 1e-12, 1e-12)
+        np.testing.assert_allclose(float(ts.value_norm.mean), float(ts_j.value_norm.mean), rtol=1e-12)
+    assert ts.opt_state.count == 80
 
 
 def test_train_step_runs_and_learns():

@@ -1,7 +1,8 @@
 """The port's MASAC against the JAX package's, in float64 on the same
 parameters, batches and draws (the next and fresh actions' noise from
 JAX's ``split(key)``): ``_losses`` and every gradient leaf, the per-agent
-temperatures included (1e-10), three ``_update_once`` calls (1e-9),
+temperatures included (1e-10), three ``_update_once`` calls (1e-9) and a
+hundred at the default widths,
 ``sample_squashed``, the exploration and its warm-up switch, the JAX
 package's MASAC behaviour tests, ported, and a checkpoint round trip."""
 
@@ -23,9 +24,9 @@ import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch.algos import MASAC, MASACConfig
 from gym_formation_tpu_torch.algos.masac import sample_squashed
 from gym_formation_tpu_torch.models.networks import squashed_actor_from_flax
-from _offpolicy import (
+from _offpolicy import (  # noqa: F401 (one_torch_thread: a module fixture)
     F64, H, assert_module, assert_round_trip, assert_trees, batch, checkpoint_round_trip, f64, grads_tree, jbatch,
-    jgumbel, jnormal, np_tree, perturbed, scaled_head, t, tbatch,
+    jgumbel, jnormal, np_tree, one_torch_thread, perturbed, scaled_head, t, tbatch,
 )
 
 TOL = dict(rtol=1e-10, atol=1e-10)
@@ -132,6 +133,34 @@ def test_update_once_matches_jax(case):
     moved = not np.allclose(ts.log_alpha.detach().numpy(), np.log([0.1, 0.2, 0.35]), rtol=0, atol=0)
     assert moved == talgo.cfg.autotune_alpha
     assert ts.alpha_opt.count == (3 if talgo.cfg.autotune_alpha else 0)
+
+
+def test_hundred_updates_at_the_default_widths_match_jax():
+    """100 updates at the default config (three 64-wide layers, batches of
+    256) from JAX's own initial networks: actors, critics, targets and
+    temperatures stay with JAX's (float64, 1e-9), so no drift of the update
+    itself moves a long run off JAX's curve."""
+    M = 256
+    jalgo = JMASAC(ft.make_env("formation_hd_env", num_agents=3), JMASACConfig(buffer_size=64), num_envs=4)
+    ts_j = jalgo.init(jax.random.PRNGKey(1))[0]
+    a, c = f64(ts_j.actor_params), f64(ts_j.critic_params)
+    ts_j = ts_j.replace(actor_params=a, critic_params=c, target_critic_params=c, log_alpha=f64(ts_j.log_alpha),
+                        actor_opt=jalgo.actor_tx.init(a), critic_opt=jalgo.critic_tx.init(c),
+                        alpha_opt=jalgo.alpha_tx.init(f64(ts_j.log_alpha)))
+    talgo = MASAC(gt.make_env("formation_hd_env", num_agents=3), MASACConfig(buffer_size=64), num_envs=4,
+                  device="cpu", dtype=F64)
+    ts = talgo.state_from_flax(np_tree({"actor": a, "critic": c, "log_alpha": ts_j.log_alpha}))
+    update = jax.jit(jalgo._update_once)
+    for k in range(100):
+        b = batch(100 + k, M, 3, 18, 2, False)
+        key = jax.random.PRNGKey(200 + k)
+        ts_j, _ = update(ts_j, jbatch(b), key)
+        talgo._update_once(ts, tbatch(b), draws_of(key, M, 3, 2, False))
+    for mod, tree in ((ts.actor, ts_j.actor_params), (ts.critic, ts_j.critic_params),
+                      (ts.target_critic, ts_j.target_critic_params)):
+        assert_module(mod, tree)
+    np.testing.assert_allclose(ts.log_alpha.detach().numpy(), np.asarray(ts_j.log_alpha), rtol=1e-9, atol=1e-9)
+    assert ts.critic_opt.count == 100
 
 
 @pytest.mark.parametrize("discrete", [False, True])

@@ -31,9 +31,8 @@ The rule, fixed before any run of the port:
 
 ``run`` trains each (row, seed) in a process of its own, ``--jobs`` at a
 time, into ``--run-root``, then copies ``metrics.jsonl`` and ``run.json``
-to ``--export`` (through the chip tool: under ``chiprun_out/``; the
-checkpoints stay behind).  The check prints one line per held quantity
-and exits 1 when any row that ran is out of band.  Imports neither JAX
+to ``--export`` (the checkpoints stay behind).  The check prints one line
+per held quantity and exits 1 when any row that ran is out of band.  Imports neither JAX
 nor the JAX package.
 """
 
@@ -53,6 +52,8 @@ import subprocess
 import sys
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from dp_rates import card
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WINDOW = 0.05  # ± this share of a target step
@@ -277,7 +278,6 @@ def eval_floor(ref_mean: float, ref_std: float) -> float:
 
 @dataclasses.dataclass
 class Line:
-    held: str
     ok: bool
     text: str
 
@@ -304,15 +304,15 @@ def check_target(t: Target, dirs: Sequence[str], repo: str = REPO) -> List[Line]
         got = value_at(logs, p.step)
         what = f"mean_step_reward @ {p.step:,}"
         if got is None:
-            lines.append(Line(what, False, f"{what}: a log has no point within 5% (ref {ref:.4f}, {p.source})"))
+            lines.append(Line(False, f"{what}: a log has no point within 5% (ref {ref:.4f}, {p.source})"))
             continue
         port, seeds, s = got
         b = band(start, last, s)
         diff = abs(port - ref)
         seeds_txt = f" (seeds {' '.join(f'{x:.4f}' for x in seeds)}, sd {s:.4f})" if len(seeds) > 1 else ""
-        lines.append(Line(what, diff <= b, f"{what}: port {port:.4f}{seeds_txt}, ref {ref:.4f} ({p.source}); "
-                                           f"|diff| {diff:.4f} vs band {b:.4f}: "
-                                           f"{'in band' if diff <= b else 'OUT OF BAND'} by {abs(b - diff):.4f}"))
+        lines.append(Line(diff <= b, f"{what}: port {port:.4f}{seeds_txt}, ref {ref:.4f} ({p.source}); "
+                                     f"|diff| {diff:.4f} vs band {b:.4f}: "
+                                     f"{'in band' if diff <= b else 'OUT OF BAND'} by {abs(b - diff):.4f}"))
     if t.entropy is not None:
         if t.entropy.how == "second_half":
             end = ref_log[-1]["step"]
@@ -327,26 +327,26 @@ def check_target(t: Target, dirs: Sequence[str], repo: str = REPO) -> List[Line]
             port = got[0] if got else float("nan")
         diff = abs(port - ref)
         ok = diff <= ENTROPY_NATS
-        lines.append(Line(what, ok, f"{what}: port {port:.4f}, ref {ref:.4f} ({t.entropy.source}); |diff| "
-                                    f"{diff:.4f} vs {ENTROPY_NATS} nats: {'in band' if ok else 'OUT OF BAND'}"))
+        lines.append(Line(ok, f"{what}: port {port:.4f}, ref {ref:.4f} ({t.entropy.source}); |diff| "
+                              f"{diff:.4f} vs {ENTROPY_NATS} nats: {'in band' if ok else 'OUT OF BAND'}"))
     if t.eval is not None:
         floor = eval_floor(t.eval.mean, t.eval.std)
         evs = [r.get("eval") for r in runs]
         what = "greedy eval return"
         if not all(evs):
-            lines.append(Line(what, False, f"{what}: no eval in run.json (ref {t.eval.mean} ± {t.eval.std})"))
+            lines.append(Line(False, f"{what}: no eval in run.json (ref {t.eval.mean} ± {t.eval.std})"))
         else:
             port = mean([e["mean"] for e in evs])
             ok = port >= floor
-            lines.append(Line(what, ok, f"{what}: port {port:.2f} ± {mean([e['std'] for e in evs]):.2f}, ref "
-                                        f"{t.eval.mean} ± {t.eval.std} ({t.eval.source}); floor {floor:.2f}: "
-                                        f"{'in band' if ok else 'OUT OF BAND'} by {abs(port - floor):.2f}"))
+            lines.append(Line(ok, f"{what}: port {port:.2f} ± {mean([e['std'] for e in evs]):.2f}, ref "
+                                  f"{t.eval.mean} ± {t.eval.std} ({t.eval.source}); floor {floor:.2f}: "
+                                  f"{'in band' if ok else 'OUT OF BAND'} by {abs(port - floor):.2f}"))
     if t.launches is not None:
         for d, r in zip(dirs, runs):
             got = r.get("launches")
             ok = got == t.launches
-            lines.append(Line("launches", ok, f"kernel launches {os.path.basename(d)}: "
-                                              f"{'as expected' if ok else 'DIFFER'} {got}"))
+            lines.append(Line(ok, f"kernel launches {os.path.basename(d)}: "
+                                  f"{'as expected' if ok else 'DIFFER'} {got}"))
     return lines
 
 
@@ -396,15 +396,6 @@ def check(dirs: Sequence[str], repo: str = REPO) -> bool:
 
 
 # -- the runs --------------------------------------------------------------------
-
-def card() -> str:
-    try:
-        out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60)
-    except FileNotFoundError:
-        return "no card"
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 and out.stdout.strip() else "no card"
-
 
 def run_one(t: Target, seed: int, run_root: str, export: Optional[str], threads: int, extra: Sequence[str],
             also: Sequence[str] = ()) -> dict:
@@ -465,7 +456,7 @@ def main(argv=None) -> int:
             ev = f"; then python -m gym_formation_tpu_torch.eval {' '.join(t.eval.args)} --ckpt <run-dir>/ckpt" \
                 if t.eval else ""
             print(f"{t.name} (seeds {list(t.seeds)}; {t.kernels}): python -m gym_formation_tpu_torch.train "
-                  f"{' '.join(t.train)} --seed <seed> --run-dir runs/torch_{t.name}_s<seed>{ev}")
+                  f"{' '.join(t.train)} --seed <seed> --run-dir runs/torch_{t.name}_s<seed>{ev}\n  {t.assumptions}")
         return 0
     if argv[:1] == ["run"]:
         p = argparse.ArgumentParser(prog="learning_curves.py run")
