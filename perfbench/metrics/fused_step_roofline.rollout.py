@@ -1,0 +1,15 @@
+"""K3 (the fused step with the in-kernel BFS)'s share of its roofline, %: the least time its launches in the
+traced stretch could take (``perfbench.counts.k3_bound_s``) over their device
+time in the profiler's trace (kernels named fused_step_kernel)."""
+
+from perfbench import counts, harness
+
+
+def read(ctx):
+    tr, launches = ctx.get("trace"), ctx.get("launches")
+    if tr is None or not launches or not launches.get("fused_step"):
+        return None
+    spent = harness.kernel_seconds(tr, ("fused_step_kernel",))
+    if spent <= 0:
+        return None
+    return 100.0 * launches["fused_step"] * counts.k3_bound_s(ctx["n"], ctx["B"]) / spent
