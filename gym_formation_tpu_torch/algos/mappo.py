@@ -60,6 +60,7 @@ from .. import _device
 from ..env import FormationEnv, benchmark_means
 from ..parallel import mesh as dp
 from ..parallel import tensor as tp
+from ..utils.profiling import mark, span
 from ..models.networks import (
     GaussianActor,
     LogitsActor,
@@ -342,12 +343,14 @@ class MAPPO:
         B, N = self.num_envs, self.n_agents
         steps, bench = [], []
         for _ in range(self.cfg.rollout_len):
-            x = obs.to(self.dtype)
-            value = ts.critic(x.reshape(B, N * self.obs_dim))  # [B], or [B, N] per agent
-            dist = ts.actor(x)
-            action = self._dist_sample(generator, dist)
-            logp = self._dist_logp(dist, action)
-            env_state, out = self.env.step(env_state, action, generator)
+            with mark("mappo.policy"):
+                x = obs.to(self.dtype)
+                value = ts.critic(x.reshape(B, N * self.obs_dim))  # [B], or [B, N] per agent
+                dist = ts.actor(x)
+                action = self._dist_sample(generator, dist)
+                logp = self._dist_logp(dist, action)
+            with mark("env.step"):
+                env_state, out = self.env.step(env_state, action, generator)
             # share_obs is not stored: the update derives it from obs
             steps.append(dict(obs=x, action=action, logp=logp, value=value,
                               reward=self._env_reward(out).to(self.dtype), done=out.done[:, 0]))
@@ -398,11 +401,13 @@ class MAPPO:
         observation is ever built.  ``obs`` passes through untouched."""
         steps, bench = [], []
         for _ in range(self.cfg.rollout_len):
-            parts = self._parts(env_state)
-            (mean, log_std), value = self._structured_dist_value(ts, parts)
-            action = gaussian_sample(generator, mean, log_std, self.mesh)
-            logp = gaussian_logp(mean, log_std, action)
-            env_state, out = self.env.step_state(env_state, action, generator)
+            with mark("mappo.policy"):
+                parts = self._parts(env_state)
+                (mean, log_std), value = self._structured_dist_value(ts, parts)
+                action = gaussian_sample(generator, mean, log_std, self.mesh)
+                logp = gaussian_logp(mean, log_std, action)
+            with mark("env.step"):
+                env_state, out = self.env.step_state(env_state, action, generator)
             steps.append(dict(parts, action=action, logp=logp, value=value,
                               reward=self._env_reward(out).to(self.dtype), done=out.done[:, 0]))
             bench.append(benchmark_means(out.info))
@@ -588,8 +593,11 @@ class MAPPO:
         for epoch in range(cfg.ppo_epochs):
             for batch, rows in self._rank_batches(data, generator, perms, epoch,
                                                   cfg.rollout_len * self.global_envs, cut):
-                grads, met = self._reduce(*self._grads(ts, batch, rows))
-                self._apply(ts, grads)
+                with mark("mappo.grad"):
+                    grads, met = self._grads(ts, batch, rows)
+                grads, met = self._reduce(grads, met)
+                with span("mappo.apply"):
+                    self._apply(ts, grads)
                 ms.append(met)
         return ts, self._mean_metrics(ms)
 
@@ -599,8 +607,11 @@ class MAPPO:
         assert self.cfg.num_minibatches == 1
         ms = []
         for _ in range(self.cfg.ppo_epochs):
-            grads, met = self._reduce(*self._fused_epoch_grads(ts, data), whole=("entropy",))
-            self._apply(ts, grads)
+            with mark("mappo.grad"):
+                grads, met = self._fused_epoch_grads(ts, data)
+            grads, met = self._reduce(grads, met, whole=("entropy",))
+            with span("mappo.apply"):
+                self._apply(ts, grads)
             ms.append(met)
         return ts, self._mean_metrics(ms)
 
@@ -713,11 +724,15 @@ class MAPPO:
             collect = self._collect_fused
         else:
             collect = self._collect
-        with torch.no_grad():
+        # one span a layer (utils.profiling) and none around the iteration,
+        # so that a trace labels each stretch of time by its layer
+        with span("mappo.collect"), torch.no_grad():
             env_state, obs, traj, bench, last_value = collect(ts, env_state, obs, generator)
-        ts, data = self._prepare(ts, traj, last_value)
+        with span("mappo.prepare"):
+            ts, data = self._prepare(ts, traj, last_value)
         update = self._update_fused if self.cfg.fused_update else self._update
-        ts, metrics = update(ts, data, generator)
+        with span("mappo.update"):
+            ts, metrics = update(ts, data, generator)
         metrics.update(dp.rank_mean(dict(mean_step_reward=traj["reward"].mean(),
                                          **{k: v.mean() for k, v in bench.items()}), self.mesh))
         ts.update_i += 1

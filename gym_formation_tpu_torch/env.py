@@ -38,6 +38,7 @@ from .core.types import EnvState, StepOut
 from .envs.scenario import Scenario
 from .models.bfs import num_layers
 from .ops.kernels import fused_step, reward_sym
+from .utils.profiling import mark
 
 
 # Discrete action index → movement direction, the ``discrete_action_input``
@@ -207,11 +208,12 @@ class FormationEnv:
         state = scen.post_step(state)
 
         if self.auto_reset:
-            fresh = self.reset_state(generator, state.pos.shape[0])
-            if with_obs:
-                info["terminal_obs"] = obs
-                obs = torch.where(done_flag[:, None, None], scen.observe(fresh), obs)
-            state = _select(done_flag, fresh, state)
+            with mark("env.reset"):
+                fresh = self.reset_state(generator, state.pos.shape[0])
+                if with_obs:
+                    info["terminal_obs"] = obs
+                    obs = torch.where(done_flag[:, None, None], scen.observe(fresh), obs)
+                state = _select(done_flag, fresh, state)
         return state, StepOut(obs=obs, reward=reward, done=done, info=info)
 
     def step(
@@ -467,12 +469,17 @@ def rollout_statepolicy_fused(
         done = st.t >= env.world_length
         return _select(done, env.reset_state(generator, B), st), done
 
+    # each step's parts are marks (utils.profiling), with no span around
+    # the chunk: K3 with the policy and the state's copies, K2 (which
+    # "post" does not launch), and the auto-reset
     rewards = []
     if stats == "post":
         for _ in range(length):
-            state, _, haus, ncoll, velterm = phys_reward(state)
-            rewards.append(finalize(haus, ncoll, velterm))
-            state, _ = auto_reset(state)
+            with mark("rollout.k3"):
+                state, _, haus, ncoll, velterm = phys_reward(state)
+                rewards.append(finalize(haus, ncoll, velterm))
+            with mark("env.reset"):
+                state, _ = auto_reset(state)
         return state, torch.stack(rewards)
 
     # "pre": step t finalizes step t-1 (rewards[0] is a placeholder for
@@ -483,13 +490,16 @@ def rollout_statepolicy_fused(
     prev_done = torch.zeros(B, dtype=torch.bool, device=state.pos.device)
     for _ in range(length):
         ishape_t = state.ideal_shape
-        state, npos, haus_in, ncoll_in, velterm = phys_reward(state)
-        haus, ncoll = reward_sym.hd_reward_stats_sym(
-            prev_pos, prev_ishape, thresh=thresh, mask=prev_done, fallback=(haus_in, ncoll_in)
-        )
-        rewards.append(finalize(haus, ncoll, prev_velterm))
+        with mark("rollout.k3"):
+            state, npos, haus_in, ncoll_in, velterm = phys_reward(state)
+        with mark("rollout.k2"):
+            haus, ncoll = reward_sym.hd_reward_stats_sym(
+                prev_pos, prev_ishape, thresh=thresh, mask=prev_done, fallback=(haus_in, ncoll_in)
+            )
+            rewards.append(finalize(haus, ncoll, prev_velterm))
         prev_pos, prev_ishape, prev_velterm = npos, ishape_t, velterm  # pre-reset
-        state, prev_done = auto_reset(state)
+        with mark("env.reset"):
+            state, prev_done = auto_reset(state)
     haus, ncoll = reward_sym.hd_reward_stats_sym(prev_pos, prev_ishape, thresh=thresh)
     rewards.append(finalize(haus, ncoll, prev_velterm))
     return state, torch.stack(rewards[1:])

@@ -10,8 +10,11 @@ default build/profile_torch_fused.json):
 - kernels launched per step and kernel time per step (torch.profiler);
 - the port's own kernels (K1-K4) by name: their ctypes launches are not
   attributed to the host ranges below;
-- kernel time per layer, each layer's calls wrapped in ``record_function``
-  (PyTorch's kernels only), and the rest of the kernel time;
+- kernel time per layer (PyTorch's kernels only), and the rest of the
+  kernel time.  The layers are the program's marks (``rollout.k3``,
+  ``rollout.k2``, ``env.reset``: ``utils.profiling.mark``) and, on the step
+  path, which has no mark of its own around them, the physics and the
+  policy, each call wrapped here in ``record_function``;
 - the step's wall time without the profiler (host clock around a window
   closed by a host fetch), and the device's idle share estimated from the
   two: 1 - kernel time / wall time.
@@ -133,11 +136,9 @@ def main() -> int:
         return r
 
     walls = {"fused": wall_ms(fused), "step": wall_ms(step)}
-    _wrap(e, "reset_state", "auto-reset draw")
-    _wrap(env_mod, "_select", "auto-reset select")
     _wrap(env_mod, "world_step", "physics")
     _wrap(bfs_mod, "_expand", "policy")
-    layers = ("auto-reset draw", "auto-reset select", "physics", "policy")
+    layers = ("rollout.k3", "rollout.k2", "env.reset", "physics", "policy")
     results = [
         profile_path("fused bfs_ez pre", fused, args.steps, B, layers, walls["fused"]),
         profile_path("step path", step, args.steps, B, layers, walls["step"]),
