@@ -29,14 +29,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    episode counters are spread so that every env resets; within the
    tolerances of tests/test_fused_rollout.py and bit for bit.
 8. Fused path: rollout_statepolicy_fused(policy="bfs_ez", stats="pre") at
-   N=243, B=4096 for 128 steps across one auto-reset.  K3 launches once a
-   step, K2 (masked reset recompute) once a step and once to finalize, K1
-   never.  Finite rewards, episode counters after the reset, and the card
-   against the CPU plain path on small injected states.  Prints env-steps/s
-   and host enqueue ms/step as phase 5 does, and K3's time beside its plain
-   version's; K3's split on the path's state (K3 with external actions, K3
-   with the in-kernel BFS, K1 alone, K2 alone) beside its special-function
-   bound; K2's masked form beside an unconditional recompute.
+   N=243, B=4096 for 128 steps across one auto-reset.  K3 and the step glue
+   (step_reset) launch once a step, K2 (masked reset recompute) once a step
+   and once to finalize, K1 never.  Finite rewards, episode counters after
+   the reset, and the card against the CPU plain path on small injected
+   states.  Prints env-steps/s and host enqueue ms/step as phase 5 does, and
+   K3's time beside its plain version's; K3's split on the path's state (K3
+   with external actions, K3 with the in-kernel BFS, K1 alone, K2 alone)
+   beside its special-function bound; K2's masked form beside an
+   unconditional recompute.  The step glue against its plain version on the
+   path's state and K3's outputs, the episode counters spread so that one
+   env in 100 resets: agents, velocities, ideal velocity, counters and done
+   bit for bit, landmarks, shape and velocity term within 3e-5; its time
+   beside the plain version's.
 9. N=3 path: fused_rollout_hd at n=3, B=4096, length 256 (one K4 launch a
    window); env-steps/s as above, and K4's time beside its plain version's,
    K4 at n=9 (B=4096, 256 steps), each beside its bound, its no-FMA floor
@@ -213,18 +218,19 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 42. The bench and the graft entry: ``python -m
    gym_formation_tpu_torch.bench`` with no arguments in its own process
-   (three JSON lines in SUITE order with emit's keys and the rows'
-   metrics, finite rates > 0) and its row 2 under ``--mesh 1`` (an nccl
-   world of one rank, 2 chunks); each SUITE row again through ``bench.run``
-   in this process (2 chunks a window, one window) with its launches
-   counted: row 1 K4 once a chunk and nothing else, row 2 K3 once a step
+   (three JSON lines in SUITE order with emit's keys and the rows' metrics,
+   finite rates > 0) and its row 2 under ``--mesh 1`` (an nccl world of one
+   rank, 2 chunks); each SUITE row again through ``bench.run`` in this
+   process (2 chunks a window, one window) with its launches counted: row 1
+   K4 once a chunk and nothing else, row 2 K3 and the step glue once a step
    and the masked K2 once a step and once a chunk with neither K1 nor the
-   PyTorch BFS, row 3 K1 once a step; ``--fused on`` at n=5 refused with
-   no launch; K1 against its plain version at row 3's configuration
+   PyTorch BFS, row 3 K1 once a step; ``--fused on`` at n=5 refused with no
+   launch; K1 against its plain version at row 3's configuration
    (basic_formation N=3, agents of size 0.1, B=4096: the row's seed-0
    reset, exact contact, deep penetration, zero distance, all in contact;
-   atol = rtol = 1e-3, two launches bit for bit); ``graft_entry.entry()``'s forward (MAPPO at N=9, 64 envs) on
-   the card against the CPU within atol = rtol = 1e-5.
+   atol = rtol = 1e-3, two launches bit for bit); ``graft_entry.entry()``'s
+   forward (MAPPO at N=9, 64 envs) on the card against the CPU within atol
+   = rtol = 1e-5.
 43. The learning hold: MAPPO N=3 at B=1024 through ``train_step`` with
    the fused collection (K5, by the auto gate) and the fused update (K9),
    80 iterations (2,048,000 env steps) from seed 1 as ``python -m
@@ -2527,10 +2533,10 @@ def phase_bench(dev, kmods, card):
         if i == 0:
             want_counts = {"fused_rollout": chunks}
         elif i == 1:
-            want_counts = {"fused_step": chunks * T, "reward_sym": chunks * (T + 1), "pairforce_sym": 0,
-                           "bfs_expand": 0}
+            want_counts = {"fused_step": chunks * T, "reward_sym": chunks * (T + 1), "step_reset": chunks * T,
+                           "pairforce_sym": 0, "bfs_expand": 0}
         else:
-            want_counts = {"pairforce_sym": chunks * T, "fused_step": 0, "fused_rollout": 0}
+            want_counts = {"pairforce_sym": chunks * T, "fused_step": 0, "fused_rollout": 0, "step_reset": 0}
         for name, n in want_counts.items():
             require(counts[name] == n, f"bench row {i + 1}: {name} {counts[name]} launches, want {n}")
         if i == 0:
@@ -2634,8 +2640,9 @@ def main() -> int:
     from gym_formation_tpu_torch.ops.kernels import pairforce as k6
     from gym_formation_tpu_torch.ops.kernels import reward as k7
     from gym_formation_tpu_torch.ops.kernels import pairforce_cull as k8
+    from gym_formation_tpu_torch.ops.kernels import step_reset as glue
 
-    kmods = (k1, k2, k3, k4, k5, k9, k6, k7, k8)
+    kmods = (k1, k2, k3, k4, k5, k9, k6, k7, k8, glue)
     dev = torch.device("cuda")
 
     # -- 2. build --------------------------------------------------------
@@ -2852,6 +2859,8 @@ def main() -> int:
     require(fused_launches["fused_step"] == STEPS, f"fused_step: {fused_launches['fused_step']} launches in {STEPS} steps")
     require(fused_launches["reward_sym"] == STEPS + 1,
             f"reward_sym: {fused_launches['reward_sym']} launches in {STEPS} fused steps (want one a step and one to finalize)")
+    require(fused_launches["step_reset"] == STEPS,
+            f"step_reset: {fused_launches['step_reset']} launches in {STEPS} fused steps")
     require(fused_launches["pairforce_sym"] == 0, "the fused path launched K1")
     require(tuple(frew_host.shape) == (STEPS, NUM_ENVS), f"fused rewards shape {tuple(frew_host.shape)}")
     require(bool(torch.isfinite(frew_host).all()), "non-finite fused rewards")
@@ -2932,6 +2941,35 @@ def main() -> int:
           f"unconditional K2 + select {uncond_ms:.4f} ms")
     print(f"auto-reset draw (reset_state) {draw_ms:.4f} ms = {draw_ms / (NUM_ENVS / fused_rate * 1e3):.3f} "
           f"of the fused step wall")
+
+    # The step glue against its plain version at the path's shapes: the
+    # path's state, K3's outputs on it, and the episode counters spread so
+    # that the envs at world_length - 1 reset
+    wl = fenv.env.world_length
+    npos, nvel = (x.contiguous() for x in k3.fused_hd_step(fpos, fvel, None, fish, cfg, **k3kw)[:2])
+    g_glue = torch.Generator(device=dev)
+    g_glue.manual_seed(5)
+    draws = tuple(torch.rand(shape, generator=g_glue, device=dev)
+                  for shape in ((NUM_ENVS, NUM_AGENTS, 2), (NUM_ENVS, NUM_AGENTS, 2), (NUM_ENVS, 2)))
+    glue_args = (fstate.pos.contiguous(), fstate.vel.contiguous(), fstate.ideal_shape.contiguous(),
+                 fstate.ideal_vel.contiguous(), torch.arange(NUM_ENVS, dtype=torch.int32, device=dev) % wl,
+                 npos, nvel, *draws)
+    glue_kw = dict(row0=0, world_length=wl)
+    got = glue.step_reset(*glue_args, **glue_kw)
+    want = glue.step_reset_plain(*glue_args, **glue_kw)
+    glue_resets = int(want[6].sum())
+    require(0 < glue_resets < NUM_ENVS, f"step_reset: {glue_resets} of {NUM_ENVS} envs reset")
+    for i, name in ((1, "vel"), (3, "ideal_vel"), (4, "t"), (6, "done")):
+        require(torch.equal(got[i], want[i]), f"step_reset {name}: kernel and plain differ")
+    require(torch.equal(got[0][:, :NUM_AGENTS], want[0][:, :NUM_AGENTS]), "step_reset agents: kernel and plain differ")
+    glue_err = max(check_close(got[0], want[0], 3e-5, 0.0, "step_reset landmarks"),
+                   check_close(got[2], want[2], 3e-5, 0.0, "step_reset shape"),
+                   check_close(got[5], want[5], 3e-5, 0.0, "step_reset velterm"))
+    glue_ms, glue_plain_ms = time_pair(lambda: glue.step_reset(*glue_args, **glue_kw),
+                                       lambda: glue.step_reset_plain(*glue_args, **glue_kw))
+    print(f"step_reset B={NUM_ENVS} ({glue_resets} resetting): kernel {glue_ms:.4f} ms, plain {glue_plain_ms:.4f} ms; "
+          f"agents, velocities, ideal velocity, counters and done bit for bit, landmarks, shape and velocity term "
+          f"max abs err {glue_err:.3e} (atol 3e-5)")
 
     # -- 9. N=3 path (K4) -------------------------------------------------
     phase("N=3 path")
@@ -3117,6 +3155,8 @@ def main() -> int:
         "pairforce": bound(16 * B * E6 + 16 * E6, B * pair_ops(E6 * (E6 - 1))),
         "reward": bound(stat_bytes, B * stat_ops(N)),
         "pairforce_cull": bound(16 * B * N + 16 * N, pair_ops(sel["k8"]["near"])),
+        # a few operations an element against ten floats moved: bytes
+        "step_reset": bound(glue.bytes_moved(N, B, glue_resets), 0),
     }
     sel_out = sel["out"]
     src = "gym_formation_tpu_torch/csrc/"
@@ -3136,11 +3176,13 @@ def main() -> int:
          sel["k7"]["plain_ms"]),
         ("pairforce_cull", "pairforce_cull.py:209", sel_out["cull"]["counts"]["pairforce_cull"], k8_err,
          sel["k8"]["ms"], sel["k8"]["plain_ms"]),
+        # no TPU kernel: XLA fuses the JAX package's step glue
+        ("step_reset", None, fused_launches["step_reset"], glue_err, glue_ms, glue_plain_ms),
     )
     # no single PyTorch call computes any of these functions (torch.cdist
     # gives only the distances of K2 and K7), so library_ms is null
     kernels = [
-        dict(name=name, route="cuda", source=src + name + ".cu", replaces=pallas + where,
+        dict(name=name, route="cuda", source=src + name + ".cu", replaces=where and pallas + where,
              launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
              bound_ms=bounds[name][0], bound_by=bounds[name][1], library_ms=None)
         for name, where, launches, err, ms, plain_ms in rows

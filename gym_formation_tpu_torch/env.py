@@ -32,12 +32,13 @@ import numpy as np
 import torch
 
 from . import _device, spaces
-from .parallel.mesh import draw_rows, local_rows, size
+from .parallel.mesh import draw_rows, local_rows, rank, size
 from .core.physics import _collide_subset, world_step
 from .core.types import EnvState, StepOut
+from .envs.formation_hd import FormationHDScenario
 from .envs.scenario import Scenario
 from .models.bfs import num_layers
-from .ops.kernels import fused_step, reward_sym
+from .ops.kernels import fused_step, reward_sym, step_reset
 from .utils.profiling import mark
 
 
@@ -383,9 +384,16 @@ def rollout_statepolicy_fused(
     The same steps as :func:`rollout_statepolicy`: physics, the hd reward
     with the shared-reward broadcast, and the time-limit auto-reset.  The
     generator is consumed in the same order (the policy's draws, then a
-    fresh episode batch every step), so with the same generator state the
-    two rollouts give the same trajectories across resets, to the kernel's
-    float32 rounding.
+    fresh episode batch every step, at the global shape under a mesh), so
+    with the same generator state the two rollouts give the same
+    trajectories across resets, to the kernels' float32 rounding.
+
+    A step is the policy and K3, then one launch of
+    :func:`~gym_formation_tpu_torch.ops.kernels.step_reset.step_reset`,
+    which builds the next state from K3's agents: the landmarks recentred
+    onto the agents' centroid (``pre_obs``), the velocity term of the
+    reward, and a fresh episode from the step's draws where one ended.  The
+    draws are made into buffers reused between steps.
 
     ``stats="post"`` takes each step's reward statistics from K3 on the
     integrated positions.  ``stats="pre"`` takes them from K3 on the *input*
@@ -415,6 +423,8 @@ def rollout_statepolicy_fused(
         raise ValueError(f"stats must be 'pre' or 'post', got {stats!r}")
     if policy not in ("external", "bfs_ez"):
         raise ValueError(f"policy must be 'external' or 'bfs_ez', got {policy!r}")
+    if not isinstance(scen, FormationHDScenario):
+        raise ValueError("the fused rollout runs the formation_hd scenario")
     sub = _collide_subset(cfg)
     if sub is None:
         sub_cfg = cfg
@@ -436,70 +446,73 @@ def rollout_statepolicy_fused(
         act_scale = float(sens[0] * coef[0])
     else:
         act_mult = env._sensitivity * cfg.act_coef[:n]
+        state = scen.pre_obs(state)  # later steps' states come recentred
+    # the auto-reset's draws (FormationHDScenario.reset's, in its order) for
+    # the global batch; the rank's rows start at row0
+    Bg, row0 = B * size(env.mesh), B * rank(env.mesh)
+    draw_kw = dict(dtype=scen.dtype, device=generator.device)
+    draws = (torch.empty((Bg, n, 2), **draw_kw), torch.empty((Bg, n, 2), **draw_kw),
+             torch.empty((Bg, 2), **draw_kw))
+    c = torch.zeros_like(state.c)  # the stepped states' utterances: silent agents
+    state = state.replace(**{k: getattr(state, k).contiguous()
+                             for k in ("pos", "vel", "ideal_shape", "ideal_vel", "t")})
 
-    def phys_reward(st):
-        """Policy and K3.  Returns the state after the physics (before the
-        reset), the new agent positions, the statistics and the velocity
-        term."""
+    def k3(st):
+        """The policy and K3: the new agents and the statistics."""
         if policy == "bfs_ez":
             aforce, kw = None, dict(bfs_L=bfs_L, ideal_vel=st.ideal_vel, act_scale=act_scale)
         else:
-            actions = state_policy_fn(scen.pre_obs(st), generator)
+            actions = state_policy_fn(st, generator)
             mult = _device.const(act_mult, st.pos, torch.float32)[:, None]
             aforce, kw = actions[..., : cfg.dim_p].to(torch.float32) * mult, {}
-        npos, nvel, haus, ncoll = fused_step.fused_hd_step(
+        return fused_step.fused_hd_step(
             st.pos[:, :n], st.vel[:, :n], aforce, st.ideal_shape, sub_cfg,
             thresh=thresh, stats=stats, **kw,
         )
-        st = st.replace(
-            pos=torch.cat([npos.to(st.pos.dtype), st.pos[:, n:]], 1),
-            vel=torch.cat([nvel.to(st.vel.dtype), st.vel[:, n:]], 1),
-            c=torch.zeros_like(st.c),
-            t=st.t + 1,
+
+    def auto_reset(st, npos, nvel):
+        """The draws and the glue kernel: the next state, the step's
+        velocity term and its done flag."""
+        for u in draws:
+            u.uniform_(generator=generator)
+        pos, vel, ishape, ivel, t, velterm, done = step_reset.step_reset(
+            st.pos, st.vel, st.ideal_shape, st.ideal_vel, st.t, npos, nvel, *draws,
+            row0=row0, world_length=env.world_length,
         )
-        dv = st.ideal_vel - nvel.mean(1)
-        return scen.pre_obs(st), npos, haus, ncoll, -torch.sqrt((dv * dv).sum(-1))
+        return EnvState(pos=pos, vel=vel, c=c, ideal_shape=ishape, ideal_vel=ivel, t=t), velterm, done
 
     def finalize(haus, ncoll, velterm):
         """Sum over agents of the step's reward vector, shared broadcast
         included: n * (n * (velterm - haus) - sum ncoll)."""
         return n * (n * (velterm - haus) - ncoll.sum(-1))
 
-    def auto_reset(st):
-        done = st.t >= env.world_length
-        return _select(done, env.reset_state(generator, B), st), done
-
     # each step's parts are marks (utils.profiling), with no span around
-    # the chunk: K3 with the policy and the state's copies, K2 (which
-    # "post" does not launch), and the auto-reset
+    # the chunk: the policy and K3, K2 (which "post" does not launch), and
+    # the auto-reset.  "pre": step t finalizes step t-1 (rewards[0] is a
+    # placeholder for step -1 and is dropped)
     rewards = []
-    if stats == "post":
-        for _ in range(length):
-            with mark("rollout.k3"):
-                state, _, haus, ncoll, velterm = phys_reward(state)
-                rewards.append(finalize(haus, ncoll, velterm))
-            with mark("env.reset"):
-                state, _ = auto_reset(state)
-        return state, torch.stack(rewards)
-
-    # "pre": step t finalizes step t-1 (rewards[0] is a placeholder for
-    # step -1 and is dropped)
     prev_pos = state.pos[:, :n].contiguous()
     prev_ishape = state.ideal_shape
     prev_velterm = state.pos.new_zeros(B)
     prev_done = torch.zeros(B, dtype=torch.bool, device=state.pos.device)
     for _ in range(length):
-        ishape_t = state.ideal_shape
         with mark("rollout.k3"):
-            state, npos, haus_in, ncoll_in, velterm = phys_reward(state)
-        with mark("rollout.k2"):
-            haus, ncoll = reward_sym.hd_reward_stats_sym(
-                prev_pos, prev_ishape, thresh=thresh, mask=prev_done, fallback=(haus_in, ncoll_in)
-            )
-            rewards.append(finalize(haus, ncoll, prev_velterm))
-        prev_pos, prev_ishape, prev_velterm = npos, ishape_t, velterm  # pre-reset
+            npos, nvel, haus_in, ncoll_in = k3(state)
+        if stats == "pre":
+            with mark("rollout.k2"):
+                haus, ncoll = reward_sym.hd_reward_stats_sym(
+                    prev_pos, prev_ishape, thresh=thresh, mask=prev_done, fallback=(haus_in, ncoll_in)
+                )
+                rewards.append(finalize(haus, ncoll, prev_velterm))
+            prev_pos, prev_ishape = npos, state.ideal_shape  # pre-reset
         with mark("env.reset"):
-            state, prev_done = auto_reset(state)
+            state, velterm, done = auto_reset(state, npos, nvel)
+        if stats == "pre":
+            prev_velterm, prev_done = velterm, done
+        else:
+            rewards.append(finalize(haus_in, ncoll_in, velterm))
+    if stats == "post":
+        return state, torch.stack(rewards)
     haus, ncoll = reward_sym.hd_reward_stats_sym(prev_pos, prev_ishape, thresh=thresh)
     rewards.append(finalize(haus, ncoll, prev_velterm))
     return state, torch.stack(rewards[1:])

@@ -68,6 +68,10 @@ SIGNATURES = {
     "fused_ppo_grad_launch": (_P,) * 21 + (_I,) * 9 + (_F,) * 5 + (_P,),
     # K (a role's input width), actor, out: stages -> K9's blocks an SM
     "fused_ppo_grad_plan": (_I, _I, ctypes.POINTER(_I)),
+    # pos, vel, ishape, ivel, t, npos, nvel, ua, ul, uv (in), pos, vel,
+    # ishape, ivel, t, velterm, done (out), B, n, G, envs, row0,
+    # world_length, stream
+    "step_reset_launch": (_P,) * 17 + (_I,) * 6 + (_P,),
 }
 
 _lib = None

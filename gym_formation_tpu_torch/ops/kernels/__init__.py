@@ -7,8 +7,8 @@ and are built by :mod:`gym_formation_tpu_torch.ops._build`.
 
 from . import (
     pairforce_sym, reward_sym, fused_step, fused_rollout, fused_collect, fused_ppo_grad,
-    pairforce, reward, pairforce_cull,
+    pairforce, reward, pairforce_cull, step_reset,
 )
 
 __all__ = ["pairforce_sym", "reward_sym", "fused_step", "fused_rollout", "fused_collect",
-           "fused_ppo_grad", "pairforce", "reward", "pairforce_cull"]
+           "fused_ppo_grad", "pairforce", "reward", "pairforce_cull", "step_reset"]

@@ -21,6 +21,7 @@ from gym_formation_tpu_torch.ops.kernels import fused_rollout as k4
 from gym_formation_tpu_torch.ops.kernels import fused_step as k3
 from gym_formation_tpu_torch.ops.kernels import pairforce_sym as k1
 from gym_formation_tpu_torch.ops.kernels import reward_sym as k2
+from gym_formation_tpu_torch.ops.kernels import step_reset as sr
 
 pytestmark = pytest.mark.cuda
 
@@ -471,15 +472,133 @@ def test_fused_rollout_on_card_launches_k3_and_k2(dev, stats):
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     state = env.reset_state(g, B)
-    before = (k3.launches, k2.launches)
+    before = (k3.launches, k2.launches, sr.launches)
     g.manual_seed(1)
     fin, rew = gt.rollout_statepolicy_fused(env, None, state, g, T, stats=stats, policy="bfs_ez")
     assert (k3.launches - before[0], k2.launches - before[1]) == (T, T + 1 if stats == "pre" else 0)
+    assert sr.launches - before[2] == T
+    g_fused = g.get_state()
     pol = lambda s, gen: gt.bfs_actions_from_state(gt.ezpolicy_batched, env.scenario, s, 3)
     g.manual_seed(1)
     ref_fin, ref = gt.rollout_statepolicy(env, pol, state, g, T)
     torch.testing.assert_close(rew, ref.sum(-1), atol=5e-3, rtol=1e-4)
     assert torch.equal(fin.t, ref_fin.t) and rew.device.type == "cuda"
+    assert torch.equal(g_fused, g.get_state())
+
+
+# -- the fused rollout's step glue ---------------------------------------------
+
+
+def _glue_inputs(dev, n, B, Bg, ep, seed):
+    """A state before a step, K3-like new agents and raw draws on the card;
+    t in [0, ep), so about one env in ep resets (and at B >= 37 some do,
+    some do not)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    u = lambda *s, lo=-1.0, hi=1.0: lo + (hi - lo) * torch.rand(s, generator=g, device=dev)
+    t = torch.randint(0, ep, (B,), generator=g, device=dev, dtype=torch.int32)
+    if B >= 37:
+        t[:2] = torch.tensor([ep - 1, 0], dtype=torch.int32, device=dev)
+    state = (u(B, 2 * n, 2), u(B, 2 * n, 2, lo=-0.3, hi=0.3), u(B, n, 2), u(B, 2), t)
+    new = (u(B, n, 2), u(B, n, 2, lo=-0.3, hi=0.3))
+    draws = (u(Bg, n, 2, lo=0.0), u(Bg, n, 2, lo=0.0), u(Bg, 2, lo=0.0))
+    return state, new, draws
+
+
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("B", [1, 37, 8192])
+@pytest.mark.parametrize("n", [3, 9, 243])
+def test_step_reset_matches_plain(dev, n, B, offset):
+    """The glue kernel against its plain version on the same card tensors,
+    with rows that reset and rows that carry on, on the first rows of the
+    draws or on the middle third (a rank's offset).  t, done and every
+    value a reset copies or draws agree bit for bit; the landmarks and the
+    velocity term carry float32 means of n values summed in another order
+    (n = 243, |x| <= 2: within 243 * 2^-24 * 2 = 2.9e-5 at worst)."""
+    ep = 5
+    Bg, row0 = (3 * B, B) if offset else (B, 0)
+    state, new, draws = _glue_inputs(dev, n, B, Bg, ep, 7 * n + B + int(offset))
+    before = sr.launches
+    got = sr.step_reset(*state, *new, *draws, row0=row0, world_length=ep)
+    assert sr.launches == before + 1
+    want = sr.step_reset_plain(*state, *new, *draws, row0=row0, world_length=ep)
+    torch.cuda.synchronize()
+    pos, vel, ishape, ivel, t, velterm, done = got
+    assert torch.equal(done, want[6]) and torch.equal(t, want[4]) and t.dtype == torch.int32
+    if B >= 37:
+        assert 0 < int(done.sum()) < B
+    assert torch.equal(pos[:, :n], want[0][:, :n]) and torch.equal(vel, want[1])
+    assert torch.equal(ivel, want[3])
+    torch.testing.assert_close(pos, want[0], atol=3e-5, rtol=0)
+    torch.testing.assert_close(ishape, want[2], atol=3e-5, rtol=0)
+    torch.testing.assert_close(velterm, want[5], atol=3e-5, rtol=0)
+    # carried rows keep their shape bit for bit
+    assert torch.equal(ishape[~done], state[2][~done])
+
+
+def test_step_reset_rejects_bad_inputs(dev):
+    state, new, draws = _glue_inputs(dev, 9, 4, 8, 5, 0)
+    with pytest.raises(ValueError, match="float32 pos"):
+        sr.step_reset(state[0].double(), *state[1:], *new, *draws, row0=0, world_length=5)
+    with pytest.raises(ValueError, match="int32 t"):
+        sr.step_reset(*state[:4], state[4].long(), *new, *draws, row0=0, world_length=5)
+    with pytest.raises(ValueError, match="contiguous"):
+        sr.step_reset(*state, new[0].transpose(0, 1).contiguous().transpose(0, 1), new[1], *draws,
+                      row0=0, world_length=5)
+    with pytest.raises(ValueError, match="outside"):
+        sr.step_reset(*state, *new, *draws, row0=5, world_length=5)
+
+
+@pytest.mark.parametrize("stats", ["pre", "post"])
+def test_fused_rollout_external_on_card_one_glue_a_step(dev, stats):
+    """An external policy on the card: the glue kernel once a step, the
+    rewards and state of the step path, and the generator where the step
+    path leaves it, from envs at different steps of their episodes."""
+    n, B, T, ep = 27, 11, 14, 5
+    env = gt.FormationEnv(FormationHDScenario(num_agents=n, episode_length=ep))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    state = env.reset_state(g, B)
+    state = state.replace(t=torch.arange(B, dtype=torch.int32, device=dev) % ep)
+
+    def pol(st, gen=None):
+        apos = st.pos[:, :n]
+        target = st.ideal_shape + apos.mean(1, keepdim=True)
+        return torch.clamp(0.5 * (target - apos), -1.0, 1.0) + st.ideal_vel[:, None]
+
+    g.manual_seed(1)
+    before = sr.launches
+    fin, rew = gt.rollout_statepolicy_fused(env, pol, state, g, T, stats=stats, policy="external")
+    assert sr.launches - before == T
+    g_fused = g.get_state()
+    g.manual_seed(1)
+    ref_fin, ref = gt.rollout_statepolicy(env, pol, state, g, T)
+    assert torch.equal(g_fused, g.get_state())
+    torch.testing.assert_close(rew, ref.sum(-1), atol=5e-3, rtol=1e-4)
+    torch.testing.assert_close(fin.pos, ref_fin.pos, atol=1e-3, rtol=1e-4)
+    assert torch.equal(fin.t, ref_fin.t)
+
+
+def test_step_reset_and_a_warm_chunk_make_no_host_sync(dev):
+    """The glue kernel's call, and a warm bfs_ez chunk of the fused rollout
+    as a whole, run under the sync debug mode "error": neither waits for
+    the card."""
+    n, B, ep = 27, 64, 5
+    state, new, draws = _glue_inputs(dev, n, B, B, ep, 3)
+    env = gt.FormationEnv(FormationHDScenario(num_agents=n, episode_length=ep))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    st = env.reset_state(g, B)
+    st, _ = gt.rollout_statepolicy_fused(env, None, st, g, 6, policy="bfs_ez")  # warm
+    sr.step_reset(*state, *new, *draws, row0=0, world_length=ep)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        sr.step_reset(*state, *new, *draws, row0=0, world_length=ep)
+        st, rew = gt.rollout_statepolicy_fused(env, None, st, g, 6, policy="bfs_ez")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool(torch.isfinite(rew).all())
 
 
 # -- K5, K9 and the MAPPO train step ------------------------------------------

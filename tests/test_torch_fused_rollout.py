@@ -1,8 +1,12 @@
-"""The port's fused rollouts on the CPU (plain versions of K3, K2 and K4):
+"""The port's fused rollouts on the CPU (plain versions of K3, K2, K4 and
+the step glue):
 
 - ``rollout_statepolicy_fused`` against the port's step path across two
   auto-resets (the same generator draws), and against the JAX package's
   ``rollout_statepolicy_fused(interpret=True)`` within the first episode;
+- its step glue (``step_reset``) against the env's own reset and select,
+  from envs at different steps of their episodes, with the generator left
+  where the step path leaves it, and its rows under a mesh;
 - the whole-rollout K4 against the JAX ``fused_rollout_hd(interpret=True)``
   across resets (its counter PRNG is reproduced bit for bit)."""
 
@@ -20,7 +24,8 @@ from gym_formation_tpu.ops.pallas import fused_rollout as jfr
 import gym_formation_tpu_torch as gt
 from gym_formation_tpu_torch.envs.formation_hd import FormationHDScenario
 from gym_formation_tpu_torch.ops.kernels import fused_rollout as tfr
-from gym_formation_tpu_torch.ops.kernels import fused_step, reward_sym
+from gym_formation_tpu_torch.env import _select
+from gym_formation_tpu_torch.ops.kernels import fused_step, reward_sym, step_reset
 
 N, B, T, EP_LEN = 27, 3, 15, 6  # T crosses two auto-reset boundaries
 CASES = [("external", "pre"), ("external", "post"), ("bfs_ez", "pre"), ("bfs_ez", "post")]
@@ -114,6 +119,144 @@ def test_fused_rollout_matches_jax_within_episode(policy, stats):
     np.testing.assert_array_equal(tfinal.t.numpy(), np.asarray(jfinal.t))
 
 
+def _staggered(env, g, B):
+    """A fresh batch whose envs sit at different steps of their episodes
+    (t = b mod the episode length), so that they reset on different steps."""
+    state = env.reset_state(g, B)
+    return state.replace(t=torch.arange(B, dtype=torch.int32) % env.world_length)
+
+
+@pytest.mark.parametrize("policy,stats", CASES)
+def test_fused_rollout_staggered_resets_match_step_path(policy, stats):
+    """From envs at every step of their episode, resets land on different
+    steps of the chunk, each env twice or three times; the fused rollout
+    (its glue the plain ``step_reset``) follows the step path through all
+    of them, and leaves the generator where the step path leaves it: the
+    draws are the same, in the same order."""
+    env = _env()
+    B = EP_LEN + 1
+    g = torch.Generator()
+    g.manual_seed(0)
+    state = _staggered(env, g, B)
+    if policy == "bfs_ez":
+        step_policy = lambda s, gen: gt.bfs_actions_from_state(gt.ezpolicy_batched, env.scenario, s, 3)
+        fused_policy = None
+    else:
+        step_policy = fused_policy = _ez_state(N)
+    g.manual_seed(1)
+    st_ref, rew_ref = gt.rollout_statepolicy(env, step_policy, state, g, T)
+    g_ref = g.get_state()
+    g.manual_seed(1)
+    before = step_reset.launches
+    st_f, rew = gt.rollout_statepolicy_fused(env, fused_policy, state, g, T, stats=stats, policy=policy)
+    assert step_reset.launches == before  # the CPU takes the plain version
+    assert torch.equal(g.get_state(), g_ref)
+    np.testing.assert_allclose(rew.numpy(), rew_ref.sum(-1).numpy(), atol=5e-3, rtol=1e-4)
+    for name in ("pos", "vel", "ideal_shape", "ideal_vel"):
+        np.testing.assert_allclose(getattr(st_f, name).numpy(), getattr(st_ref, name).numpy(),
+                                   atol=1e-3, rtol=1e-4, err_msg=name)
+    np.testing.assert_array_equal(st_f.t.numpy(), st_ref.t.numpy())
+    assert len(set(st_f.t.tolist())) == EP_LEN  # still staggered
+
+
+@pytest.mark.parametrize("row0,Bg", [(0, 7), (3, 7), (5, 12)])
+def test_step_reset_plain_matches_env_reset_and_select(row0, Bg):
+    """In float64, the plain glue on rows [row0, row0 + B) of global draws
+    against the env's own pieces: the stepped state through
+    ``scenario.pre_obs``, a fresh batch from ``scenario.reset`` on the same
+    generator state (the draws made into buffers consume the generator as
+    it does, bit for bit), cut to the rows, through ``pre_obs``, and
+    ``_select``.  Half the rows reset."""
+    n, B, ep = 9, 4, 5
+    scen = FormationHDScenario(num_agents=n, episode_length=ep, dtype=torch.float64)
+    rng = np.random.RandomState(row0 + Bg)
+    f64 = lambda a: torch.as_tensor(a, dtype=torch.float64)
+    old = gt.state_from_numpy(_state_np(n, B, row0), dtype=torch.float64)
+    old = old.replace(t=torch.tensor([ep - 1, 0, ep - 1, 2], dtype=torch.int32),
+                      vel=old.vel + f64(rng.uniform(-0.1, 0.1, old.vel.shape)))
+    npos, nvel = f64(rng.uniform(-1, 1, (B, n, 2))), f64(rng.uniform(-0.3, 0.3, (B, n, 2)))
+    g = torch.Generator()
+    g.manual_seed(row0)
+    draws = (torch.empty(Bg, n, 2, dtype=torch.float64), torch.empty(Bg, n, 2, dtype=torch.float64),
+             torch.empty(Bg, 2, dtype=torch.float64))
+    for u in draws:
+        u.uniform_(generator=g)
+    got = step_reset.step_reset(old.pos, old.vel, old.ideal_shape, old.ideal_vel, old.t, npos, nvel,
+                                *draws, row0=row0, world_length=ep)
+    g2 = torch.Generator()
+    g2.manual_seed(row0)
+    fresh = scen.pre_obs(gt.parallel.mesh.local_rows(scen.reset(g2, Bg), None))
+    assert torch.equal(g.get_state(), g2.get_state())
+    fresh = gt.EnvState(*(getattr(fresh, k)[row0:row0 + B] if k != "c" else fresh.c[:B]
+                          for k in ("pos", "vel", "c", "ideal_shape", "ideal_vel", "t")))
+    stepped = scen.pre_obs(old.replace(pos=torch.cat([npos, old.pos[:, n:]], 1),
+                                       vel=torch.cat([nvel, old.vel[:, n:]], 1), t=old.t + 1))
+    done = stepped.t >= ep
+    want = _select(done, fresh, stepped)
+    dv = old.ideal_vel - nvel.mean(1)
+    for name, a, b in zip(("pos", "vel", "ideal_shape", "ideal_vel", "t", "velterm", "done"), got,
+                          (want.pos, want.vel, want.ideal_shape, want.ideal_vel, want.t,
+                           -torch.sqrt((dv * dv).sum(-1)), done)):
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a, b, atol=1e-12, rtol=0, msg=name)
+    assert done.tolist() == [True, False, True, False]
+    with pytest.raises(ValueError, match="outside"):
+        step_reset.step_reset(old.pos, old.vel, old.ideal_shape, old.ideal_vel, old.t, npos, nvel,
+                              *draws, row0=Bg - B + 1, world_length=ep)
+
+
+class _Mesh:
+    """The two methods of a DeviceMesh that the fused rollout reads: W ranks
+    on the data axis, this process rank r."""
+
+    mesh_dim_names = ("data",)
+
+    def __init__(self, W, r):
+        self.W, self.r = W, r
+
+    def size(self, dim=0):
+        return self.W
+
+    def get_local_rank(self, axis):
+        return self.r
+
+
+@pytest.mark.parametrize("policy", ["external", "bfs_ez"])
+def test_fused_rollout_sharded_rows_equal_whole_batch(policy):
+    """Under a mesh of 3 ranks, each rank's rows of the sharded rollout (the
+    glue reading its rows of the global draws) equal the same rows of the
+    whole batch in one process, across staggered resets."""
+    env, W, b = _env(9), 3, 2
+    g = torch.Generator()
+    g.manual_seed(2)
+    state = _staggered(env, g, W * b)
+    pol = _ez_state(9) if policy == "external" else None
+    g.manual_seed(3)
+    whole, rew = gt.rollout_statepolicy_fused(env, pol, state, g, T, policy=policy)
+    for r in range(W):
+        g.manual_seed(3)
+        rows = slice(r * b, (r + 1) * b)
+        part = gt.EnvState(*(x[rows] for x in (state.pos, state.vel, state.c, state.ideal_shape,
+                                               state.ideal_vel, state.t)))
+        st, rw = gt.rollout_statepolicy_fused_sharded(env, pol, part, g, T, _Mesh(W, r), policy=policy)
+        torch.testing.assert_close(rw, rew[:, rows], atol=1e-6, rtol=0)
+        for name in ("pos", "vel", "ideal_shape", "ideal_vel", "t"):
+            torch.testing.assert_close(getattr(st, name), getattr(whole, name)[rows], atol=1e-6, rtol=0)
+
+
+def test_step_reset_launch_plan():
+    """G lanes an env (a power of two >= n, at most 32), whole warps of at
+    most 256 threads, as many envs as the shared memory holds."""
+    plans = {n: step_reset.launch_plan(n) for n in (1, 2, 3, 9, 27, 32, 33, 243, 3872)}
+    assert plans == {1: (1, 256), 2: (2, 128), 3: (4, 64), 9: (16, 16), 27: (32, 8), 32: (32, 8),
+                     33: (32, 8), 243: (32, 8), 3872: (32, 4)}
+    with pytest.raises(ValueError, match="shared memory"):
+        step_reset.launch_plan(30000)
+    assert step_reset.bytes_moved(243, 8192, 0) == 4 * 8192 * (20 * 243 + 7) + 8192
+    assert step_reset.bytes_moved(243, 8192, 100) == 4 * (8092 * (10 * 243 + 3) + 100 * (6 * 243 + 5)
+                                                         + 8192 * (10 * 243 + 4)) + 8192
+
+
 def test_fused_rollout_rejects_unsupported():
     env = _env(9)
     g = torch.Generator()
@@ -125,7 +268,10 @@ def test_fused_rollout_rejects_unsupported():
     env4 = _env(4)
     with pytest.raises(ValueError):  # 4 agents are no arity-3 hierarchy
         gt.rollout_statepolicy_fused(env4, None, env4.reset_state(g, 2), g, 2, policy="bfs_ez")
-    assert (fused_step.launches, reward_sym.launches) == (0, 0)
+    part = gt.FormationEnv(gt.make_env("formation_hd_partial_env", num_agents=9).scenario)
+    with pytest.raises(ValueError, match="formation_hd"):
+        gt.rollout_statepolicy_fused(part, _ez_state(9), part.reset_state(g, 2), g, 2)
+    assert (fused_step.launches, reward_sym.launches, step_reset.launches) == (0, 0, 0)
 
 
 # -- K4 -----------------------------------------------------------------------

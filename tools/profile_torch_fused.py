@@ -8,7 +8,7 @@ BFS + ezpolicy controller), it prints and writes to ``--out`` (JSON,
 default build/profile_torch_fused.json):
 
 - kernels launched per step and kernel time per step (torch.profiler);
-- the port's own kernels (K1-K4) by name: their ctypes launches are not
+- the port's own kernels (K1-K4, the step glue) by name: their ctypes launches are not
   attributed to the host ranges below;
 - kernel time per layer (PyTorch's kernels only), and the rest of the
   kernel time.  The layers are the program's marks (``rollout.k3``,
@@ -37,7 +37,8 @@ from torch.profiler import ProfilerActivity, profile, record_function
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-PORT_KERNELS = ("pairforce_sym_kernel", "reward_sym_kernel", "fused_step_kernel", "fused_rollout_kernel")
+PORT_KERNELS = ("pairforce_sym_kernel", "reward_sym_kernel", "fused_step_kernel", "fused_rollout_kernel",
+                "step_reset_kernel")
 
 
 def _wrap(obj, name, label):
